@@ -1,0 +1,98 @@
+"""Shared-weight feature pyramid — the port of decnet_tpu/nn/feature.py
+(reference FeatExtNetChannelPlus), faithful form (`s2d_last=False`) with
+four stages.
+
+Encoder: conv0 (C, full res) -> conv1 (3C, 1/3) -> conv2 (9C, 1/9) ->
+conv3 (27C, 1/27) with an ASPP context branch fused by 1x1 convs.  Decoder:
+three deconv blocks (stride-3 transposed conv + skip concat + 2 convs).
+Returns [stage0 (1/27, 27C), stage1 (1/9, 9C), stage2 (1/3, 3C),
+stage3 (full, C)]: 216/72/24/8 channels for C = 8."""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn as nn
+
+from decnet_tpu_torch.nn.layers import ConvUnit, DeconvUnit
+
+
+class ASPP(nn.Module):
+    """1x1 conv + 3x3 convs at the given dilation rates, concatenated."""
+
+    def __init__(self, in_ch: int, features: int,
+                 rates: Sequence[int] = (4, 8, 12), dtype=torch.float32):
+        super().__init__()
+        self.c0 = ConvUnit(in_ch, features, 1, padding=0, dtype=dtype)
+        for i, r in enumerate(rates):
+            self.add_module(f"c{i + 1}", ConvUnit(in_ch, features, 3,
+                                                  dilation=r, padding=r,
+                                                  dtype=dtype))
+        self.n = len(rates) + 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([getattr(self, f"c{i}")(x) for i in range(self.n)],
+                         dim=1)
+
+
+class DeconvBlock(nn.Module):
+    """Stride-3 upsample of the coarse input, concat with the skip, 2 convs."""
+
+    def __init__(self, in_ch: int, skip_ch: int, features: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.deconv = DeconvUnit(in_ch, features, 3, 3, dtype=dtype)
+        self.conv_0 = ConvUnit(features + skip_ch, features, 3, padding=1,
+                               dtype=dtype)
+        self.conv_1 = ConvUnit(features, features, 3, padding=1, dtype=dtype)
+
+    def forward(self, x_skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([self.deconv(x), x_skip], dim=1)
+        return self.conv_1(self.conv_0(y))
+
+
+class FeatureExtractor(nn.Module):
+    def __init__(self, base_channels: int = 8, down_scale: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        C, s = base_channels, down_scale
+        c1, c2, c3 = C * s, C * s * s, C * s ** 3
+        self.out_channels = [c3, c2, c1, C]     # coarse -> fine
+
+        def unit(name, cin, cout, k=3, stride=1, padding=1):
+            self.add_module(name, ConvUnit(cin, cout, k, stride=stride,
+                                           padding=padding, dtype=dtype))
+
+        unit("conv0_0", 3, C)
+        unit("conv0_1", C, C)
+        unit("conv1_0", C, c1, stride=s)
+        unit("conv1_1", c1, c1)
+        unit("conv1_2", c1, c1)
+        unit("conv2_0", c1, c2, stride=s)
+        unit("conv2_1", c2, c2)
+        unit("conv2_2", c2, c2)
+        unit("conv3_1", c2, c3, stride=s)
+        unit("conv3_2a", c3, c3)
+        unit("conv3_2b", c3, c3)
+        self.aspp = ASPP(c3, c3, dtype=dtype)
+        unit("ctx_fuse", 4 * c3, c3, k=1, padding=0)
+        unit("fusion", 2 * c3, c3, k=1, padding=0)
+        unit("trans2", c2, c2, k=1, padding=0)
+        self.deconv3 = DeconvBlock(c3, c2, c2, dtype=dtype)
+        unit("trans1", c1, c1, k=1, padding=0)
+        self.deconv2 = DeconvBlock(c2, c1, c1, dtype=dtype)
+        unit("trans0", C, C, k=1, padding=0)
+        self.deconv1 = DeconvBlock(c1, C, C, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        conv0 = self.conv0_1(self.conv0_0(x))
+        conv1 = self.conv1_2(self.conv1_1(self.conv1_0(conv0)))
+        conv2 = self.conv2_2(self.conv2_1(self.conv2_0(conv1)))
+        conv3_1 = self.conv3_1(conv2)
+        conv3_2 = self.conv3_2b(self.conv3_2a(conv3_1))
+        ctx = self.ctx_fuse(self.aspp(conv3_1))
+        stage0 = self.fusion(torch.cat([conv3_2, ctx], dim=1))
+        stage1 = self.deconv3(self.trans2(conv2), stage0)
+        stage2 = self.deconv2(self.trans1(conv1), stage1)
+        stage3 = self.deconv1(self.trans0(conv0), stage2)
+        return [stage0, stage1, stage2, stage3]

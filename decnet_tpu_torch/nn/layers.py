@@ -1,0 +1,114 @@
+"""Conv building blocks, NCHW/NCDHW, inference only — the port of
+decnet_tpu/nn/layers.py:200-357 and :414-421.
+
+Convolution weights are held in the compute dtype (the JAX package casts
+its f32 kernels to it at every call; casting once at load gives the same
+values).  Batch norm keeps its parameters and statistics in f32, folds them
+into a per-channel multiplier and offset in f32 and casts those to the
+activation dtype, as `FoldedBatchNorm` does in JAX.  Submodule names (`conv`,
+`bn`) are what `weights.py` maps the flax names `Conv_0`/`ConvTranspose_0`
+and `BatchNorm_0` onto."""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class FoldedBatchNorm(nn.Module):
+    """Inference batch norm: x * mul + ofs, mul = scale / sqrt(var + eps),
+    ofs = bias - mean * mul, folded in f32 and cast to x's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        ofs = self.bias - self.running_mean * mul
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return x * mul.to(x.dtype).view(shape) + ofs.to(x.dtype).view(shape)
+
+
+class _Unit(nn.Module):
+    """conv -> optional batch norm -> optional ReLU."""
+
+    def __init__(self, conv: nn.Module, out_ch: int, relu: bool, bn: bool):
+        super().__init__()
+        self.conv = conv
+        self.bn = FoldedBatchNorm(out_ch) if bn else None
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x.to(self.conv.weight.dtype))
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x) if self.relu else x
+
+
+class ConvUnit(_Unit):
+    """Conv2d + BatchNorm + ReLU (reference Conv2dUnit)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, padding: int = 0,
+                 relu: bool = True, bn: bool = True, dtype=torch.float32):
+        super().__init__(nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                                   padding=padding, dilation=dilation,
+                                   bias=not bn, dtype=dtype),
+                         out_ch, relu, bn)
+
+
+class DeconvUnit(_Unit):
+    """ConvTranspose2d(k=3, s=3, p=0) + BatchNorm + ReLU: exactly 3x the
+    input size (reference Deconv2dUnit)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 3, relu: bool = True, bn: bool = True,
+                 dtype=torch.float32):
+        super().__init__(nn.ConvTranspose2d(in_ch, out_ch, kernel_size,
+                                            stride=stride, bias=not bn,
+                                            dtype=dtype),
+                         out_ch, relu, bn)
+
+
+class Conv3dUnit(_Unit):
+    """Conv3d + BatchNorm + ReLU over (B,C,S,H,W) volumes."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, relu: bool = True,
+                 bn: bool = True, dtype=torch.float32):
+        super().__init__(nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride,
+                                   padding=padding, bias=not bn, dtype=dtype),
+                         out_ch, relu, bn)
+
+
+def unfold_nonoverlap(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B,C,H,W) -> (B,C*k*k,H/k,W/k), channel c*k*k + ki*k + kj (torch's
+    F.unfold(kernel=k, stride=k) order)."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, C, H // k, k, W // k, k)
+    x = x.permute(0, 1, 3, 5, 2, 4)             # B, C, ki, kj, H/k, W/k
+    return x.reshape(B, C * k * k, H // k, W // k)
+
+
+def unfold3x3_replicate(x: torch.Tensor) -> torch.Tensor:
+    """3x3 neighbourhoods of (B,H,W) with edge replication -> (B,9,H,W),
+    channel ki*3 + kj (the reference's F.unfold(ReplicationPad2d(1)(d)))."""
+    H, W = x.shape[-2:]
+    xp = F.pad(x[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    return torch.stack([xp[:, i:i + H, j:j + W]
+                        for i in range(3) for j in range(3)], dim=1)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B,r*r,H,W) -> (B,1,H*r,W*r): channel i*r + j lands at offset (i, j)
+    (torch F.pixel_shuffle with one output channel)."""
+    B, C, H, W = x.shape
+    if C != r * r:
+        raise ValueError(f"pixel_shuffle needs {r * r} channels, got {C}")
+    x = x.reshape(B, r, r, H, W).permute(0, 3, 1, 4, 2)   # B, H, i, W, j
+    return x.reshape(B, 1, H * r, W * r)

@@ -1,0 +1,133 @@
+"""Weight bridge: the flax variables of decnet_tpu's DecNet -> the port's
+state_dict, and checkpoint loading.
+
+Input is either a `params.npz` snapshot as decnet_tpu/train/checkpoint.py
+writes it (flattened pytree, keys like
+"['params']/['refine_2']/['c0']/['Conv_0']/['kernel']") or the nested
+in-memory variables of a JAX model converted to numpy.  The bridge is
+strict: every array must map onto a port parameter or buffer and every
+port parameter or buffer must be filled, with matching shapes.
+
+Layouts:
+  Conv          HWIO   -> OIHW
+  Conv (3D)     DHWIO  -> OIDHW
+  ConvTranspose HWIO   -> IOHW with the spatial dims flipped: the JAX layer
+                is a correlation over the stride-dilated input with the
+                kernel as stored, torch's ConvTranspose2d the adjoint of a
+                correlation (the inverse of decnet_tpu/train/torch_import.py
+                :33-37)
+  BatchNorm     scale/bias -> weight/bias, batch_stats mean/var ->
+                running_mean/running_var
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+
+from decnet_tpu_torch.config import load_config
+from decnet_tpu_torch.device import resolve_device
+from decnet_tpu_torch.models.decnet import DecNet
+
+_KEY_PART = re.compile(r"^\['([^']+)'\]$")
+_MODULES = {"Conv_0": "conv", "ConvTranspose_0": "conv", "BatchNorm_0": "bn"}
+_LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+           ("params", "scale"): "weight",
+           ("batch_stats", "mean"): "running_mean",
+           ("batch_stats", "var"): "running_var"}
+
+
+def _parse_key(key: str) -> Tuple[str, ...]:
+    parts = []
+    for p in key.split("/"):
+        m = _KEY_PART.match(p)
+        if not m:
+            raise KeyError(f"not a flattened flax key: {key!r}")
+        parts.append(m.group(1))
+    return tuple(parts)
+
+
+def flatten_variables(tree: Mapping, prefix: Tuple[str, ...] = ()
+                      ) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Nested {collection: {module: ... {leaf: array}}} -> {path: array}."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(flatten_variables(v, prefix + (str(k),)))
+        else:
+            flat[prefix + (str(k),)] = np.asarray(v)
+    return flat
+
+
+def _convert(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(port state_dict key, array in the port's layout) for one flax leaf."""
+    collection, names = path[0], path[1:]
+    if collection == "params" and len(names) == 1 \
+            and names[0].startswith("match_logt_"):
+        return names[0], arr
+    if len(names) < 2 or names[-2] not in _MODULES \
+            or (collection, names[-1]) not in _LEAVES:
+        raise KeyError(f"no port parameter for flax variable {path}")
+    module, leaf = names[-2], names[-1]
+    if leaf == "kernel":
+        if module == "ConvTranspose_0":
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 5:
+            arr = arr.transpose(4, 3, 0, 1, 2)
+        else:
+            raise ValueError(f"{path}: unexpected kernel rank {arr.ndim}")
+    key = ".".join(names[:-2] + (_MODULES[module],
+                                 _LEAVES[(collection, leaf)]))
+    return key, np.ascontiguousarray(arr)
+
+
+def state_dict_from_flax(variables: Union[str, Mapping]
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict (f32 CPU tensors) from a `params.npz` path or
+    from nested flax variables."""
+    if isinstance(variables, (str, os.PathLike)):
+        with np.load(variables) as z:
+            flat = {_parse_key(k): z[k] for k in z.files}
+    else:
+        flat = flatten_variables(variables)
+    sd = {}
+    for path, arr in flat.items():
+        key, arr = _convert(path, arr)
+        if key in sd:
+            raise KeyError(f"two flax variables map onto {key}")
+        sd[key] = torch.from_numpy(np.array(arr, np.float32))
+    return sd
+
+
+def load_flax_variables(model: torch.nn.Module,
+                        variables: Union[str, Mapping]) -> int:
+    """Fill `model` from flax variables; strict both ways.  Returns the
+    number of arrays consumed."""
+    sd = state_dict_from_flax(variables)
+    want = model.state_dict()
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"weight bridge mismatch: {len(missing)} port tensors "
+                       f"unfilled (e.g. {missing[:3]}), {len(extra)} arrays "
+                       f"unused (e.g. {extra[:3]})")
+    for k, v in sd.items():
+        if tuple(want[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: checkpoint shape {tuple(v.shape)} != "
+                             f"port shape {tuple(want[k].shape)}")
+    model.load_state_dict(sd, strict=True)
+    return len(sd)
+
+
+def load_checkpoint(ckpt_dir: str, device="cuda") -> DecNet:
+    """DecNet built from `<ckpt_dir>/config.json` and filled from
+    `<ckpt_dir>/params.npz`, in eval mode on `device`."""
+    dev = resolve_device(device)
+    model = DecNet(load_config(ckpt_dir))
+    load_flax_variables(model, os.path.join(ckpt_dir, "params.npz"))
+    return model.to(dev).eval()
