@@ -2,21 +2,31 @@
 """Smoke run of the PyTorch port (decnet_tpu_torch) on one NVIDIA card.
 
 Builds the port's CUDA kernels with nvcc, holds each against its plain
-PyTorch version on the card at the three fine-stage shapes of one 540x972
-request and times both, loads the faithful checkpoint in bf16, serves a few
-seeded synthetic stereo requests through `decnet_tpu_torch.cli.demo.predict`
-and checks them.  One line is printed per phase as it ends; the line before
-the last is a JSON object describing every kernel, the last line is the
-device record.  Any failed check ends the run with a non-zero exit.
+PyTorch version on the card and times both: the forward kernels (sparse
+matching moments, disparity warp) at the three fine-stage shapes of one
+540x972 request and of a training batch, the backward kernels (dRef,
+dTar) at the training shapes.  Then it drives the two main paths: it loads
+the faithful checkpoint in bf16 and serves a few seeded synthetic stereo
+requests through `decnet_tpu_torch.cli.demo.predict`, and it trains the
+faithful model from that checkpoint for a few steps through
+`decnet_tpu_torch.cli.train` (batch 8 of 162x486 crops of the on-device
+stream, max_disp 216, bf16, batch-statistic BN), holding a kernel-path step
+against a plain-path step and against kernel paths with planted faults.
+One line is printed per phase as it ends; the line before the last is a
+JSON object describing every kernel, the last line is the device record.
+Any failed check ends the run with a non-zero exit.
 
 Usage:  python3 chip_smoke.py [--seed 0] [--out FILE.json]
 Needs one CUDA card; without one it exits non-zero and prints no result.
-It writes only the kernels' build directory (and --out when given).
+It writes only the kernels' build directory, a parameter snapshot under
+it (and --out when given).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,6 +43,13 @@ DEV = "cuda"
 SERVE = (540, 972, 216)
 # (C, H, W, D) of the fine stages 1..3 of that request
 STAGES = [(72, 60, 108, 24), (24, 180, 324, 72), (8, 540, 972, 216)]
+# ... and of a training batch: B = 8 crops of 162x486, max_disp 216
+TRAIN_B = 8
+TRAIN_STAGES = [(72, 18, 54, 24), (24, 54, 162, 72), (8, 162, 486, 216)]
+TRAIN_STEPS = 5           # timed, after one warm-up step (rate 0)
+# the faithful run's (batch, crop h, crop w, max_disp, dtype): config.json
+# holds it
+TRAIN_SHAPE = (TRAIN_B, 162, 486, 216, "bfloat16")
 MASK_DENSITY = 0.2
 # kernel vs plain tolerances, f32 accumulation both sides:
 #   moments: summation order of the C-term scores and of the band differ,
@@ -42,7 +59,40 @@ MASK_DENSITY = 0.2
 #            by one bf16 ulp (2^-7 relative) where the f32 values differ.
 MOMENTS_RTOL, MOMENTS_ATOL = 2e-4, 1e-6
 WARP_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 1e-6)}
+#   backward: max |kernel - plain| over the largest |plain| gradient.  f32:
+#            the same f32 products summed in another order, and scores
+#            recomputed in another order inside exp: 1e-4.  bf16 inputs:
+#            the gradients are stored in bf16, which rounds each by up to
+#            2^-9 relative: 2^-7.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 SERVE_MEAN_TOL = 0.05     # px, kernel path vs plain path, mean |delta|
+#   train step, kernel path vs plain path on one batch and one set of
+#   weights: the forward differs only by the moments' summation order (the
+#   warp is bit-identical), which bf16 activations carry into the loss:
+#   sound runs read 2.5e-4 relative, tolerance 1e-3.  The flattened
+#   gradients, which also carry cuDNN's run-to-run order, read cosine
+#   0.999974 (1 - cos = 2.6e-5); with dRef or dTar zeroed, 0.931 and 0.955
+#   (1 - cos >= 4.5e-2).  The tolerance 0.999 sits near the geometric
+#   middle of the two, ~40x from each.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_COS = 0.999
+#   planted faults, each on the kernel path of that step.  The check must
+#   reject a backward kernel's output zeroed.  The moments' band one
+#   disparity short in the forward (an off-by-one) is only read: it moves
+#   the loss by less than the summation order does (2.2e-4), and the
+#   step's gradients turn non-finite (the backward's extra pairs are not
+#   bounded by max_cost); the moments' own parity check is what holds the
+#   forward kernel.  Each fault wraps the wrapper it replaces
+#   (functools.wraps carries its launch counter over).
+FAULTS = {
+    "dref_zeroed": ("spamat_dref", True, lambda torch, real: (
+        lambda *a, **k: torch.zeros_like(real(*a, **k)))),
+    "dtar_zeroed": ("spamat_dtar", True, lambda torch, real: (
+        lambda *a, **k: torch.zeros_like(real(*a, **k)))),
+    "moments_band_short": ("moments", False, lambda torch, real: (
+        lambda ref, tar, rm, tm, max_disp, *a: real(ref, tar, rm, tm,
+                                                    max_disp - 1, *a))),
+}
 REQUESTS = 3              # served after one warm-up request
 SPIN_CYCLES = 2_000_000   # ~1 ms of device time at H100 clocks
 
@@ -90,20 +140,35 @@ def candidate_pairs(torch, rm, tm, D):
     return float((cnt * (rm != 0)).sum())
 
 
-def kernel_parity(torch, spamat, kwarp, gen, flush_buf):
-    """Each kernel against its plain version at the stage shapes, f32 and
-    bf16; times in bf16 (the served dtype).  Returns per-kernel records."""
+def bound(nbytes, flops):
+    """(bound ms, what bounds it) on the data-sheet peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def stage_inputs(torch, gen, B, C, H, W, D):
+    """Random 20%-dense masks, f32 features and disparities in [0, D)."""
+    dev = DEV
+    rm = (torch.rand(B, H, W, generator=gen, device=dev)
+          < MASK_DENSITY).float()
+    tm = (torch.rand(B, H, W, generator=gen, device=dev)
+          < MASK_DENSITY).float()
+    feat32 = torch.randn(B, C, H, W, generator=gen, device=dev)
+    tar32 = torch.randn(B, C, H, W, generator=gen, device=dev)
+    disp = torch.rand(B, H, W, generator=gen, device=dev) * D
+    return rm, tm, feat32, tar32, disp
+
+
+def kernel_parity(torch, spamat, kwarp, gen, flush_buf, stages=None, B=1):
+    """Each kernel against its plain version at the stage shapes (those of
+    one served request by default), f32 and bf16; times in bf16 (the served
+    and trained dtype).  Returns per-kernel records."""
     F = torch.nn.functional
     dev = DEV
     rec = {"spamat_moments": [], "warp": []}
-    for C, H, W, D in STAGES:
-        rm = (torch.rand(1, H, W, generator=gen, device=dev)
-              < MASK_DENSITY).float()
-        tm = (torch.rand(1, H, W, generator=gen, device=dev)
-              < MASK_DENSITY).float()
-        feat32 = torch.randn(1, C, H, W, generator=gen, device=dev)
-        tar32 = torch.randn(1, C, H, W, generator=gen, device=dev)
-        disp = torch.rand(1, H, W, generator=gen, device=dev) * D
+    for C, H, W, D in stages or STAGES:
+        rm, tm, feat32, tar32, disp = stage_inputs(torch, gen, B, C, H, W, D)
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[-1]
             ref, tar = feat32.to(dt), tar32.to(dt)
@@ -130,15 +195,13 @@ def kernel_parity(torch, spamat, kwarp, gen, flush_buf):
                 nbytes = (2 * ref.numel() * ref.element_size()
                           + 2 * rm.numel() * 4 + 4 * rm.numel() * 4)
                 flops = pairs * (2 * C + 8)
+                bms, by = bound(nbytes, flops)
                 r.update(
                     ms=time_cuda(torch, lambda: spamat.moments(
                         ref, tar, rm, tm, D), 20, flush_buf),
                     plain_ms=time_cuda(torch, lambda: spamat.moments_plain(
                         ref, tar, rm, tm, D), 3, flush_buf),
-                    bytes=nbytes, flops=flops,
-                    bound_ms=max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3,
-                    bound_by="bytes" if nbytes / PEAK_BYTES
-                    >= flops / PEAK_F32 else "operations",
+                    bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
                     library_ms=None)
             rec["spamat_moments"].append(r)
             print(f"  moments C={C} {H}x{W} D={D} {dname}: "
@@ -166,15 +229,13 @@ def kernel_parity(torch, spamat, kwarp, gen, flush_buf):
                 grid = grid.to(dt)
                 nbytes = 2 * ref.numel() * ref.element_size() + disp.numel() * 4
                 flops = ref.numel() * 30.0
+                bms, by = bound(nbytes, flops)
                 r.update(
                     ms=time_cuda(torch, lambda: kwarp.warp(ref, disp, D), 20,
                                  flush_buf),
                     plain_ms=time_cuda(torch, lambda: kwarp.warp_plain(
                         ref, disp, D), 5, flush_buf),
-                    bytes=nbytes, flops=flops,
-                    bound_ms=max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3,
-                    bound_by="bytes" if nbytes / PEAK_BYTES
-                    >= flops / PEAK_F32 else "operations",
+                    bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
                     library_ms=time_cuda(torch, lambda: F.grid_sample(
                         ref, grid, align_corners=False), 20, flush_buf))
             rec["warp"].append(r)
@@ -183,6 +244,221 @@ def kernel_parity(torch, spamat, kwarp, gen, flush_buf):
                              else f"{k}={v}" for k, v in r.items()
                              if k not in ("shape", "dtype")), flush=True)
     return rec
+
+
+def backward_residuals(torch, spamat, ref, tar, rm, tm, D, center=None,
+                       window=0):
+    """out, sum_sim, max_cost of the forward, as the matching Function
+    saves them (from the moments kernel)."""
+    m, se, sed, _ = spamat.moments(ref, tar, rm, tm, D, center, window)
+    refm = rm != 0
+    eps = spamat.EPS
+    out = torch.where(refm, (eps + sed) / (eps + se), 0.0)
+    return (out, torch.where(refm, eps + se, 0.0),
+            torch.where(refm, m, 0.0))
+
+
+def backward_parity(torch, spamat, gen, flush_buf):
+    """The dRef and dTar kernels against `spamat_backward_plain` at the
+    training stage shapes (B = 8), f32 and bf16, and once windowed; times
+    in bf16.  Returns per-kernel records."""
+    rec = {"spamat_dref": [], "spamat_dtar": []}
+    cases = [(shape, dt, 0) for shape in TRAIN_STAGES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((TRAIN_STAGES[1], torch.float32, 6))
+    for (C, H, W, D), dt, window in cases:
+        B = TRAIN_B
+        rm, tm, feat32, tar32, disp = stage_inputs(torch, gen, B, C, H, W, D)
+        dname = str(dt).split(".")[-1]
+        ref, tar = feat32.to(dt), tar32.to(dt)
+        center = disp if window else None
+        out, ss, mc = backward_residuals(torch, spamat, ref, tar, rm, tm, D,
+                                         center, window)
+        g = torch.randn(B, H, W, generator=gen, device=DEV)
+        args = (ref, tar, rm, tm, out, ss, mc, g, D, center, window)
+        w = spamat.query_weight(g, rm, ss).contiguous()
+        kargs = (ref, tar, tm, mc, out, w, D, center, window)
+        got = (spamat.spamat_dref(*kargs), spamat.spamat_dtar(*kargs))
+        want = spamat.spamat_backward_plain(*args)
+        torch.cuda.synchronize()
+        pairs = candidate_pairs(torch, rm, tm, D)
+        for name, gk, gp in zip(rec, got, want):
+            if not torch.isfinite(gk.float()).all():
+                fail(f"{name} C={C} {dname} window={window}: non-finite "
+                     f"output")
+            scale = float(gp.float().abs().max())
+            err = float((gk.float() - gp.float()).abs().max())
+            rel = err / max(scale, 1e-30)
+            if not rel <= BWD_TOL[dname]:
+                fail(f"{name} C={C} H={H} W={W} D={D} {dname} window="
+                     f"{window}: max err {err:.3e} = {rel:.3e} of the "
+                     f"largest gradient, past {BWD_TOL[dname]:.3g}")
+            r = {"shape": [B, C, H, W, D], "dtype": dname, "window": window,
+                 "max_abs_err": err, "rel_err": rel, "max_grad": scale}
+            if dt == torch.bfloat16 and not window:
+                kernel = getattr(spamat, name)
+                # ref, tar, 4 f32 maps in; one gradient out; per candidate
+                # pair 2C flops for the score, 2C to accumulate, ~8 more
+                nbytes = 3 * ref.numel() * ref.element_size() \
+                    + 4 * rm.numel() * 4
+                flops = pairs * (4 * C + 8)
+                bms, by = bound(nbytes, flops)
+                r.update(
+                    ms=time_cuda(torch, lambda: kernel(*kargs), 20,
+                                 flush_buf),
+                    plain_ms=time_cuda(torch, lambda:
+                                       spamat.spamat_backward_plain(*args), 3,
+                                       flush_buf),
+                    bytes=nbytes, flops=flops, pairs=pairs, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+            rec[name].append(r)
+            print(f"  {name} B={B} C={C} {H}x{W} D={D} {dname} window="
+                  f"{window}: " + " ".join(
+                      f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                      for k, v in r.items()
+                      if k not in ("shape", "dtype", "window")), flush=True)
+    return rec
+
+
+def flat_grads(torch, grads):
+    return torch.cat([g.float().flatten() for g in grads])
+
+
+def train_phase(torch, counters):
+    """A few optimizer steps of the faithful model from the checkpoint
+    through the train CLI's entry (`prepare`, then `Run.step`), with the
+    checks this run can make; then a kernel-path step held against a
+    plain-path step on one batch, the same check against kernel paths with
+    planted faults (it must reject a zeroed backward kernel), and one
+    freeze-BN step."""
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.ops.kernels import spamat
+    from decnet_tpu_torch.train.checkpoint import save_params
+    from decnet_tpu_torch.train.step import loss_and_grads, train_step
+
+    ckpt_out = os.path.join(ROOT, "build", "decnet_tpu_torch", "smoke_ckpt")
+    run = tcli.prepare(["--config", os.path.join(CKPT, "config.json"),
+                        "--dataset", "synthetic", "--init_from", CKPT,
+                        "--steps", str(TRAIN_STEPS + 1), "--ckpt_dir",
+                        ckpt_out, "--device", DEV])
+    cfg, model = run.cfg, run.state.model
+    shape = (cfg.train.batch_size, cfg.train.crop_h, cfg.train.crop_w,
+             cfg.model.max_disp, cfg.model.dtype)
+    if shape != TRAIN_SHAPE:
+        fail(f"train config {shape} is not the faithful run's")
+
+    def snapshot(kind):
+        return {k: v.detach().clone() for k, v in model.state_dict().items()
+                if (k.endswith(("running_mean", "running_var")))
+                == (kind == "stats")}
+
+    def moved(before):
+        now = model.state_dict()
+        return sum(not torch.equal(now[k], v) for k, v in before.items())
+
+    def finite_logs(logs, where):
+        vals = {k: float(v) for k, v in logs.items()}
+        bad = [k for k, v in vals.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"train {where}: non-finite {bad}")
+        return vals
+
+    # warm-up step: rate 0, so the parameters must not move
+    p0, s0 = snapshot("params"), snapshot("stats")
+    t = time.perf_counter()
+    first = finite_logs(run.step(next(run.stream)), "step 1")
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    if moved(p0):
+        fail("step 1 (rate 0) moved parameters")
+    if moved(s0) == 0:
+        fail("step 1 did not move the BN running statistics")
+    # timed steps, the counts read around exactly these steps
+    batches = [next(run.stream) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    p1 = snapshot("params")
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    logs, ms = [], []
+    for i, b in enumerate(batches):
+        t = time.perf_counter()
+        out = run.step(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        logs.append(finite_logs(out, f"step {i + 2}"))
+        if i == 0 and moved(p1) == 0:
+            fail("step 2 moved no parameter")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = 3 * TRAIN_STEPS
+    for k, n in launches.items():
+        if n != want:
+            fail(f"{k} launched {n} times in {TRAIN_STEPS} train steps, "
+                 f"expected {want}")
+    for i, (l, m) in enumerate(zip(logs, ms)):
+        print(f"  step {i + 2}: {m:.2f} ms loss={l['total']:.5f} "
+              f"grad_norm={l['grad_norm']:.4f}", flush=True)
+
+    # kernel path vs plain path: one batch, one set of weights
+    b = batches[-1]
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def loss_and_flat_grads(use_kernels):
+        model.use_kernels = use_kernels
+        lg, grads = loss_and_grads(model, b, cfg)
+        model.load_state_dict(state)
+        model.use_kernels = True
+        return float(lg["total"]), flat_grads(torch, grads)
+
+    def against_plain(lk, gk):
+        """(loss relative error, gradient cosine) against the plain path;
+        a pair the tolerances accept."""
+        rel = abs(lk - lp) / abs(lp)
+        cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+        ok = (torch.isfinite(gk).all() and rel <= TRAIN_LOSS_RTOL
+              and cos >= TRAIN_GRAD_COS)
+        return rel, cos, bool(ok)
+
+    lp, gp = loss_and_flat_grads(False)
+    lk, gk = loss_and_flat_grads(True)
+    loss_rel, cos, ok = against_plain(lk, gk)
+    if not ok:
+        fail(f"train step kernel vs plain: loss rel {loss_rel:.3e} (tol "
+             f"{TRAIN_LOSS_RTOL}), gradient cosine {cos:.6f} (tol "
+             f"{TRAIN_GRAD_COS}), finite {bool(torch.isfinite(gk).all())}")
+    # the same comparison against kernel paths with a planted fault
+    faults = {}
+    for fault, (name, must_reject, planted) in FAULTS.items():
+        real = getattr(spamat, name)
+        setattr(spamat, name, functools.wraps(real)(planted(torch, real)))
+        try:
+            rel, c, passed = against_plain(*loss_and_flat_grads(True))
+        finally:
+            setattr(spamat, name, real)
+        faults[fault] = {"loss_rel": rel, "grad_cos": c}
+        print(f"  planted fault {fault}: loss rel {rel:.4g} gradient cosine "
+              f"{c:.7g}", flush=True)
+        if passed and must_reject:
+            fail(f"the kernel vs plain step check passed with {fault}")
+
+    # one freeze-BN step: running statistics bit-identical, parameters move
+    s1, p2 = snapshot("stats"), snapshot("params")
+    finite_logs(train_step(run.state, b, cfg, freeze_bn=True), "freeze step")
+    if moved(s1) or not moved(p2):
+        fail("freeze-BN step moved the BN statistics or no parameter")
+    path = save_params(ckpt_out, model, cfg)
+    import numpy as np
+    with np.load(path) as z:
+        if len(z.files) != 374:
+            fail(f"snapshot holds {len(z.files)} arrays, not 374")
+    return {"launches": launches, "step_ms": ms, "warmup_ms": warm_ms,
+            "peak_mem_mb": peak_mb, "first_loss": first["total"],
+            "losses": [l["total"] for l in logs],
+            "grad_norms": [l["grad_norm"] for l in logs],
+            "plain_loss_rel": loss_rel, "plain_grad_cos": cos,
+            "planted_faults": faults,
+            "kernel_loss": lk, "plain_loss": lp}
 
 
 def kernel_parity_extra(torch, spamat, kwarp, gen):
@@ -258,7 +534,7 @@ def main():
 
     # -- 2. build
     t0 = time.perf_counter()
-    results = build.build(["spamat_moments", "warp"])
+    results = build.build(["spamat_moments", "warp", "spamat_backward"])
     for r in results:
         for line in r.ptxas.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -273,8 +549,18 @@ def main():
     with torch.no_grad():
         parity = kernel_parity(torch, spamat, kwarp, gen, flush_buf)
         extra = kernel_parity_extra(torch, spamat, kwarp, gen)
-    phase("kernel_parity", t0, shapes=len(STAGES), dtypes=2,
-          **{k: f"{v:.3g}" for k, v in extra.items()})
+        parity_train = kernel_parity(torch, spamat, kwarp, gen, flush_buf,
+                                     TRAIN_STAGES, TRAIN_B)
+    phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
+          dtypes=2, **{k: f"{v:.3g}" for k, v in extra.items()})
+
+    # -- 3b. backward kernels against their plain version
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        bwd = backward_parity(torch, spamat, gen, flush_buf)
+    phase("backward_parity", t0, shapes=len(TRAIN_STAGES), dtypes=2,
+          windowed=1, **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
+                         for k, v in bwd.items()})
 
     # -- 4. load
     t0 = time.perf_counter()
@@ -336,6 +622,8 @@ def main():
     if not mean_delta <= SERVE_MEAN_TOL:
         fail(f"kernel vs plain path: mean |delta disp| {mean_delta:.4g} px "
              f"> {SERVE_MEAN_TOL}")
+    del model
+    torch.cuda.empty_cache()
     phase("serve", t0, requests=REQUESTS, size=f"{H}x{W}", max_disp=D,
           latency_ms=",".join(f"{x:.3f}" for x in lat),
           peak_mem_mb=f"{peak_mb:.1f}", launches=json.dumps(launches),
@@ -343,31 +631,71 @@ def main():
           plain_p999_abs_delta_px=f"{p999:.5g}",
           epe_px=",".join(f"{e:.4f}" for e in epes))
 
-    # -- 6. the kernels line
+    # -- 6. train
+    t0 = time.perf_counter()
+    counters = {"spamat_moments": spamat.moments, "warp": kwarp.warp,
+                "spamat_dref": spamat.spamat_dref,
+                "spamat_dtar": spamat.spamat_dtar}
+    train = train_phase(torch, counters)
+    b, h, w, d, dt = TRAIN_SHAPE
+    phase("train", t0, steps=TRAIN_STEPS, batch=b, size=f"{h}x{w}",
+          max_disp=d, dtype=dt,
+          step_ms=",".join(f"{x:.2f}" for x in train["step_ms"]),
+          warmup_ms=f"{train['warmup_ms']:.1f}",
+          peak_mem_mb=f"{train['peak_mem_mb']:.1f}",
+          launches=json.dumps(train["launches"]),
+          loss=",".join(f"{x:.4f}" for x in train["losses"]),
+          plain_loss_rel=f"{train['plain_loss_rel']:.3g}",
+          plain_grad_cos=f"{train['plain_grad_cos']:.6f}",
+          planted_fault_grad_cos=",".join(
+              f"{k}:{v['grad_cos']:.4g}"
+              for k, v in train["planted_faults"].items()))
+
+    # -- 7. the kernels line: per kernel, the launches of both main paths'
+    # runs; times summed over the three fine-stage shapes of its main path
+    # (serving, one 540x972 request, for the forward kernels; a training
+    # batch for the backward ones), bf16, with the forward kernels' times
+    # at the training shapes beside them
     sources = {"spamat_moments": ("decnet_tpu_torch/csrc/spamat_moments.cu",
                                   "decnet_tpu/ops/pallas/spamat.py:80"),
                "warp": ("decnet_tpu_torch/csrc/warp.cu",
-                        "decnet_tpu/ops/pallas/warp.py:49")}
-    kernels = []
-    for name, recs in parity.items():
+                        "decnet_tpu/ops/pallas/warp.py:49"),
+               "spamat_dref": ("decnet_tpu_torch/csrc/spamat_backward.cu",
+                               "decnet_tpu/ops/pallas/spamat.py:239"),
+               "spamat_dtar": ("decnet_tpu_torch/csrc/spamat_backward.cu",
+                               "decnet_tpu/ops/pallas/spamat.py:287")}
+
+    def summed(recs):
         timed = [r for r in recs if "ms" in r]
         lib = [r["library_ms"] for r in timed]
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
-            # per request: the sum over the three fine-stage shapes, bf16
-            "ms": sum(r["ms"] for r in timed),
-            "kernel_ms": sum(r["ms"] for r in timed),
-            "plain_ms": sum(r["plain_ms"] for r in timed),
-            "bound_ms": sum(r["bound_ms"] for r in timed),
-            "bound_by": max(timed, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": None if None in lib else sum(lib)})
+        return {"ms": sum(r["ms"] for r in timed),
+                "plain_ms": sum(r["plain_ms"] for r in timed),
+                "bound_ms": sum(r["bound_ms"] for r in timed),
+                "bound_by": max(timed, key=lambda r: r["bound_ms"])[
+                    "bound_by"],
+                "library_ms": None if None in lib else sum(lib)}
+
+    kernels = []
+    for name, recs in list(parity.items()) + list(bwd.items()):
+        by_path = {"train": train["launches"][name]}
+        if name in launches:
+            by_path = {"serve": launches[name], **by_path}
+        k = {"name": name, "route": "cuda", "source": sources[name][0],
+             "replaces": sources[name][1],
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "max_abs_err": max(r["max_abs_err"] for r in recs),
+             **summed(recs)}
+        if name in parity_train:
+            k["train_shapes"] = summed(parity_train[name])
+            k["max_abs_err"] = max(k["max_abs_err"], max(
+                r["max_abs_err"] for r in parity_train[name]))
+        kernels.append(k)
     torch.cuda.synchronize()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kind": kind, "parity": parity,
-                       "parity_extra": extra,
+                       "parity_extra": extra, "parity_train": parity_train,
+                       "backward": bwd, "train": train,
                        "latency_ms": lat, "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,
                        "plain_p999_abs_delta_px": p999, "kernels": kernels,

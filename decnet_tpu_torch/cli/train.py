@@ -1,0 +1,169 @@
+"""Training CLI for the on-device synthetic stream — the twin of
+decnet_tpu/cli/train.py for `data.on_device` with `--dataset synthetic`.
+
+Per step: a batch made on the device (`data/device_synth.py`), the forward
+with batch-statistic batch norm (running statistics from
+`train.freeze_bn_after` on, or throughout with `train.freeze_bn`), the
+multi-stage loss, backward, the global-norm clip and Adam at the scheduled
+rate.  Logs the JAX CLI's JSON lines every `train.log_every` steps (and
+eval lines with --eval_split), writes `<ckpt_dir>/params.npz` and
+`config.json` every `train.ckpt_every` steps and at the end.
+
+Usage:
+  python -m decnet_tpu_torch.cli.train --config runs/ckpt_faithful/config.json \
+      --dataset synthetic --ckpt_dir out/ --steps 100 \
+      [--init_from runs/ckpt_faithful] [--set train.batch_size=4 ...] \
+      [--eval_split val --eval_every 50 --eval_batches 4] [--device cuda]
+
+--init_from reads a params.npz directory (strict: every array must fit).
+Orbax resume of the optimizer state and partial warm starts are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from decnet_tpu_torch.config import Config, load_full_config
+from decnet_tpu_torch.data.device_synth import device_batch_stream
+from decnet_tpu_torch.device import resolve_device
+from decnet_tpu_torch.models.decnet import DecNet
+from decnet_tpu_torch.train.checkpoint import save_params
+from decnet_tpu_torch.train.step import (TrainState, create_train_state,
+                                         eval_step, train_step)
+from decnet_tpu_torch.weights import load_flax_variables
+
+EVAL_KEYS = ("epe", "d1", "epe_up0", "d1_up0")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--config", default=None, help="config.json to start from")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="SECTION.KEY=VALUE",
+                   help="config override, e.g. --set model.max_disp=54")
+    p.add_argument("--dataset", required=True,
+                   help="only 'synthetic' (the on-device stream) is ported")
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--steps", type=int, default=None,
+                   help="train.total_steps (also sets the schedule's length)")
+    p.add_argument("--init_from", default=None,
+                   help="directory with a params.npz to start from")
+    p.add_argument("--eval_split", default=None,
+                   help="any value: evaluate on the validation stream")
+    p.add_argument("--eval_every", type=int, default=2000)
+    p.add_argument("--eval_batches", type=int, default=16)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def build_config(args: argparse.Namespace) -> Config:
+    cfg = (load_full_config(args.config, args.overrides) if args.config
+           else Config().apply_overrides(args.overrides))
+    if args.dataset != "synthetic" or not cfg.data.on_device:
+        raise NotImplementedError(
+            f"only the on-device synthetic stream is ported (got --dataset "
+            f"{args.dataset!r}, data.on_device={cfg.data.on_device})")
+    if args.ckpt_dir:
+        cfg.train.ckpt_dir = args.ckpt_dir
+    if args.steps:
+        cfg.train.total_steps = args.steps
+    return cfg
+
+
+@dataclasses.dataclass
+class Run:
+    """What `prepare` builds: the config, the train state, the batch
+    stream and the fixed eval batches."""
+    cfg: Config
+    state: TrainState
+    stream: Iterator[Dict]
+    eval_batches: Optional[List[Dict]]
+    eval_every: int
+
+    def freeze_bn(self) -> bool:
+        """Whether the next step normalises with the running statistics."""
+        t = self.cfg.train
+        return t.freeze_bn or (t.freeze_bn_after > 0
+                               and self.state.step >= t.freeze_bn_after)
+
+    def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        return train_step(self.state, batch, self.cfg, self.freeze_bn())
+
+    def evaluate(self) -> Dict[str, float]:
+        ms = [eval_step(self.state.model, b, self.cfg)
+              for b in self.eval_batches]
+        return {k: float(np.mean([float(m[k]) for m in ms]))
+                for k in EVAL_KEYS}
+
+
+def prepare(argv=None) -> Run:
+    args = parse_args(argv)
+    cfg = build_config(args)
+    dev = resolve_device(args.device)
+    state = create_train_state(DecNet(cfg.model).to(dev), cfg)
+    if args.init_from:
+        load_flax_variables(state.model, os.path.join(args.init_from,
+                                                      "params.npz"))
+    gen_kw = dict(batch=cfg.train.batch_size, h=cfg.train.crop_h,
+                  w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
+                  scale=cfg.model.down_scale, levels=cfg.model.num_stage - 1,
+                  thold=cfg.data.mask_thold, dtype=cfg.model.torch_dtype,
+                  device=dev)
+    stream = device_batch_stream(cfg.train.seed, **gen_kw)
+    eval_batches = None
+    if args.eval_split:
+        val = device_batch_stream(cfg.train.seed, val=True, **gen_kw)
+        eval_batches = [next(val) for _ in range(args.eval_batches)]
+    return Run(cfg, state, stream, eval_batches, args.eval_every)
+
+
+def run(r: Run) -> None:
+    cfg, t = r.cfg, r.cfg.train
+    print(f"training from step {r.state.step} to {t.total_steps} "
+          f"(device {next(r.state.model.parameters()).device}, "
+          f"data=on-device)", flush=True)
+    t_log = time.perf_counter()
+    for batch in r.stream:
+        logs = r.step(batch)
+        step = r.state.step
+        if step % t.log_every == 0:
+            logs = {k: float(v) for k, v in logs.items()}
+            dt = time.perf_counter() - t_log
+            t_log = time.perf_counter()
+            print(json.dumps(
+                {"step": step, "loss": round(logs["total"], 5),
+                 "grad_norm": round(logs["grad_norm"], 4),
+                 "steps_per_sec": round(t.log_every / dt, 3),
+                 **{k: round(v, 5) for k, v in logs.items()
+                    if k not in ("total", "grad_norm")}}), flush=True)
+        if r.eval_batches is not None and step % r.eval_every == 0:
+            m = r.evaluate()
+            print(json.dumps({"step": step,
+                              "eval_epe": round(m["epe"], 4),
+                              "eval_d1": round(m["d1"], 3),
+                              "eval_epe_up0": round(m["epe_up0"], 4),
+                              "eval_d1_up0": round(m["d1_up0"], 3)}),
+                  flush=True)
+        if step % t.ckpt_every == 0:
+            save_params(t.ckpt_dir, r.state.model, cfg)
+            print(f"saved checkpoint @ {step}", flush=True)
+        if step >= t.total_steps:
+            break
+    save_params(t.ckpt_dir, r.state.model, cfg)
+    print(f"final checkpoint @ {r.state.step}", flush=True)
+
+
+def main(argv=None):
+    run(prepare(argv))
+
+
+if __name__ == "__main__":
+    main()

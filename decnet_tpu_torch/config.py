@@ -1,25 +1,39 @@
-"""Model configuration of the port: the `ModelConfig` fields the faithful
-DecNet forward reads (a copy of the schema in decnet_tpu/config.py, which
-the port does not import), plus a loader for a checkpoint's `config.json`
-sidecar."""
+"""Configuration of the port: the `ModelConfig`, `LossConfig`,
+`TrainConfig` and `DataConfig` fields the faithful DecNet forward and its
+training read (a copy of the schema in decnet_tpu/config.py, which the port
+does not import), a loader for a checkpoint's `config.json` sidecar, and
+`section.key=value` overrides.
+
+Values the port does not implement are refused with NotImplementedError
+rather than ignored."""
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+from typing import Iterable, Optional, Tuple
 
 import torch
 
 # Keys of a sidecar's "model" section that only the JAX package reads: its
-# kernel dispatch, its training-only gradient switch, the adaptive-sampling
-# knobs no forward reaches, and the learned-detail binarisation (the port
-# takes precomputed masks; see `use_detail`).
+# kernel dispatch, the adaptive-sampling knobs no forward reaches, and the
+# learned-detail binarisation (the port takes precomputed masks; see
+# `use_detail`).
 _IGNORED_KEYS = frozenset((
-    "arch", "matching_impl", "grad_method", "step", "samp_num",
+    "arch", "matching_impl", "step", "samp_num",
     "sample_spa_size_list", "thold", "thold_mode", "detail_density",
     "s2d_stages", "conv3d_impl", "split_concat"))
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+GRAD_METHODS = ("detach", "undetach")
+
+
+def _refuse(section: str, obj, unsupported: dict):
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{section} values not ported yet: "
+            f"{ {k: getattr(obj, k) for k in bad} }")
 
 
 @dataclasses.dataclass
@@ -35,6 +49,9 @@ class ModelConfig:
     num_stage: int = 4
     down_scale: int = 3
     cost_func: str = "cor"
+    # "detach": the coarser stage's prediction enters DynamicUpsampling
+    # without gradient (the reference detaches cross-stage predictions)
+    grad_method: str = "detach"
     skip_stage_id: int = 4          # stages >= this would upsample bicubically
     use_detail: bool = False        # masks come from the Gaussian pyramid
     dtype: str = "bfloat16"         # compute dtype; BN and softmax stay f32
@@ -50,7 +67,10 @@ class ModelConfig:
             raise ValueError(
                 f"max_disp ({self.max_disp}) must be divisible by "
                 f"down_scale^{self.num_stage - 1}")
-        unsupported = {
+        if self.grad_method not in GRAD_METHODS:
+            raise ValueError(f"grad_method must be one of {GRAD_METHODS}, "
+                             f"got {self.grad_method!r}")
+        _refuse("ModelConfig", self, {
             "num_stage": self.num_stage != 4,
             "skip_stage_id": self.skip_stage_id < self.num_stage,
             "cost_func": self.cost_func != "cor",
@@ -59,25 +79,181 @@ class ModelConfig:
             "s2d_fine": self.s2d_fine,
             "match_window": self.match_window != 0,
             "dtype": self.dtype not in DTYPES,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"ModelConfig values not ported yet: "
-                f"{ {k: getattr(self, k) for k in bad} }")
+        })
 
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
 
-def load_config(path: str, **overrides) -> ModelConfig:
-    """ModelConfig from a checkpoint's `config.json` sidecar (or the
-    directory holding it).  Unknown model keys raise; `overrides` win."""
+@dataclasses.dataclass
+class LossConfig:
+    loss_type: str = "multi_stage_regression_uploss"
+    weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    down_func_name: str = "bicubic"     # GT pyramid: bilinear|bicubic|max|min
+    if_overmask: bool = False           # zero the sky rows (<108/down)
+    alpha: float = 0.1                  # detail-mask loss weight (unused)
+    sparse_term_scale: float = 1.0      # multiplies 0.2/(10+3.75*stage)
+    binary_thold: Optional[float] = None
+    sparse_cand_mask: bool = True       # sparse term only where cand > 0
+
+    def __post_init__(self):
+        _refuse("LossConfig", self, {
+            "loss_type": self.loss_type != "multi_stage_regression_uploss",
+            "down_func_name": self.down_func_name not in (
+                "bilinear", "bicubic", "max", "min")})
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 1e-3
+    lr_schedule: str = "cosine"         # cosine | constant | piecewise
+    warmup_steps: int = 500
+    total_steps: int = 300_000
+    weight_decay: float = 0.0
+    batch_size: int = 8
+    crop_h: int = 270
+    crop_w: int = 513
+    seed: int = 37
+    ckpt_dir: str = "checkpoints"
+    ckpt_every: int = 2000
+    log_every: int = 50
+    keep_ckpts: int = 5                 # read by the JAX package's Orbax only
+    freeze_bn: bool = False             # every step normalises with running stats
+    freeze_bn_after: int = 0            # from this step on, as freeze_bn; 0: never
+    packed_exec: bool = False
+    max_rss_gb: float = 80.0            # a TPU-host guard; not read here
+
+    def __post_init__(self):
+        if self.lr_schedule not in ("cosine", "constant", "piecewise"):
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
+        _refuse("TrainConfig", self, {"packed_exec": self.packed_exec})
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    data: int = -1
+    tile: int = 1
+    disp: int = 1
+
+    def __post_init__(self):
+        _refuse("MeshConfig", self, {"tile": self.tile != 1,
+                                     "disp": self.disp != 1})
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset: str = "sceneflow"
+    root: str = ""
+    split: str = "train"
+    img_rows: int = 540
+    img_cols: int = 960
+    num_workers: int = 4
+    mask_thold: float = 0.3
+    mask_source: str = "compute"
+    on_device: bool = False
+    variant: str = "default"
+
+    def __post_init__(self):
+        _refuse("DataConfig", self, {"variant": self.variant != "default"})
+
+
+_SECTIONS = {"model": ModelConfig, "loss": LossConfig, "train": TrainConfig,
+             "mesh": MeshConfig, "data": DataConfig}
+
+
+@dataclasses.dataclass
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """Strict: unknown keys raise (model keys only the JAX package reads
+        are skipped, see `_IGNORED_KEYS`)."""
+        unknown = set(d) - set(_SECTIONS)
+        if unknown:
+            raise KeyError(f"unknown config sections {sorted(unknown)}")
+        built = {}
+        for name, tp in _SECTIONS.items():
+            fields = {f.name for f in dataclasses.fields(tp)}
+            sub = dict(d.get(name, {}))
+            if name == "model":
+                sub = {k: v for k, v in sub.items() if k not in _IGNORED_KEYS}
+            bad = set(sub) - fields
+            if bad:
+                raise KeyError(f"unknown config keys {name}.{sorted(bad)}")
+            built[name] = tp(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in sub.items()})
+        return cls(**built)
+
+    def apply_overrides(self, overrides: Iterable[str]) -> "Config":
+        """A new Config with 'section.key=value' overrides applied, e.g.
+        model.max_disp=54 (values parsed by the type of the current one)."""
+        d = self.to_dict()
+        for ov in overrides:
+            key, sep, val = ov.partition("=")
+            section, _, name = key.partition(".")
+            if not sep or section not in d or name not in d[section]:
+                raise KeyError(f"bad override {ov!r}: want section.key=value "
+                               f"with a known key")
+            d[section][name] = _parse_value(val, d[section][name])
+        return Config.from_dict(d)
+
+
+def _parse_value(val: str, old):
+    """`val` parsed like the JAX package's overrides: by the old value's
+    type; 'none'/'null' clears an optional field."""
+    if val.lower() in ("none", "null") and not isinstance(old, str):
+        return None
+    if old is None:
+        try:
+            return _int_or_float(val)
+        except ValueError:
+            return val
+    if isinstance(old, bool):
+        return val.lower() in ("1", "true", "yes")
+    if isinstance(old, int):
+        return int(val)
+    if isinstance(old, float):
+        return float(val)
+    if isinstance(old, (tuple, list)):
+        if val.startswith("["):
+            return tuple(json.loads(val))
+        return tuple(_int_or_float(x) for x in val.split(","))
+    return val
+
+
+def _int_or_float(x: str):
+    try:
+        return int(x)
+    except ValueError:
+        return float(x)
+
+
+def _read_json(path: str) -> dict:
     if os.path.isdir(path):
         path = os.path.join(path, "config.json")
     with open(path) as f:
-        raw = json.load(f)
+        return json.load(f)
+
+
+def load_full_config(path: str, overrides: Iterable[str] = ()) -> Config:
+    """The whole Config from a `config.json` (or the directory holding
+    it), with 'section.key=value' overrides applied."""
+    return Config.from_dict(_read_json(path)).apply_overrides(overrides)
+
+
+def load_config(path: str, **overrides) -> ModelConfig:
+    """ModelConfig from a checkpoint's `config.json` sidecar (or the
+    directory holding it).  Unknown model keys raise; `overrides` win."""
+    raw = _read_json(path)
     model = dict(raw.get("model", raw))
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     unknown = set(model) - fields - _IGNORED_KEYS

@@ -1,5 +1,6 @@
-"""DecNet, the faithful (reference-form) forward — the port of
-decnet_tpu/models/decnet.py:125-376 for use_detail=False, s2d_fine=False.
+"""DecNet, the faithful (reference-form) model, forward for serving and
+training — the port of decnet_tpu/models/decnet.py:125-376 for
+use_detail=False, s2d_fine=False.
 
 Per forward pass:
   stage 0 (1/27): uniform warped `cor` cost volume -> 3D-conv regulariser
@@ -7,12 +8,18 @@ Per forward pass:
   stages 1..3:    dynamic upsampling of the coarser prediction (dense
                   branch); sparse matching plus variance on the detail
                   pixels given by the masks (sparse branch, the
-                  `spamat_moments` kernel); soft-attention fusion; residual
-                  refinement (the `warp` kernel).
-Inputs are NCHW; the output dict has the JAX model's keys.
+                  `spamat_moments` kernel, and in training the `spamat_dref`
+                  and `spamat_dtar` kernels); soft-attention fusion;
+                  residual refinement (the `warp` kernel).
+Under grad_method "detach" the coarser prediction enters the dynamic
+upsampling without gradient, and the variance never carries one (the
+reference computes it under no_grad).  Batch norm follows the module's
+train/eval mode.  Inputs are NCHW; the output dict has the JAX model's
+keys.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -24,7 +31,6 @@ from decnet_tpu_torch.nn.feature import FeatureExtractor
 from decnet_tpu_torch.nn.heads import (CostRegNet, DynamicUpsampling,
                                        Refinement, SoftAttention)
 from decnet_tpu_torch.ops.cost_volume import build_cost_volume_uniform
-from decnet_tpu_torch.ops.kernels import spamat
 from decnet_tpu_torch.ops.kernels import warp as warp_kernel
 from decnet_tpu_torch.ops.matching import (candidate_availability,
                                            sparse_matching_with_var)
@@ -40,10 +46,10 @@ class DecNet(nn.Module):
     model's (`feature_extractor`, `cost_reg`, `dyn_up_i`, `soft_att_i`,
     `refine_i`, `match_logt_i`), so `weights.py` maps checkpoints by name.
 
-    `use_kernels` (default True) sends the sparse matching and the
-    Refinement warp through the kernel wrappers; False runs their plain
-    PyTorch versions on any device, which is how a card run holds the
-    kernel path against the plain one."""
+    `use_kernels` (default True) sends the sparse matching (forward and
+    backward) and the Refinement warp through the kernel wrappers; False
+    runs their plain PyTorch versions on any device, which is how a card
+    run holds the kernel path against the plain one."""
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True):
         super().__init__()
@@ -89,8 +95,8 @@ class DecNet(nn.Module):
         dtype = cfg.torch_dtype
         scale, ns = cfg.down_scale, cfg.num_stage
         max_disp = int(max_disp or cfg.max_disp)
-        moments = spamat.moments if self.use_kernels else spamat.moments_plain
-        warp = warp_kernel.warp if self.use_kernels else warp_kernel.warp_plain
+        warp = functools.partial(warp_kernel.warp_with_grad,
+                                 use_kernel=self.use_kernels)
 
         left_all = self.feature_extractor(left.to(dtype))
         right_all = self.feature_extractor(right.to(dtype))
@@ -114,7 +120,8 @@ class DecNet(nn.Module):
             rmask = right_masks[i].float().contiguous()
             out["masks_used"].append(lmask)
 
-            dense = getattr(self, f"dyn_up_{i}")(pred, lf)
+            cur = pred.detach() if cfg.grad_method == "detach" else pred
+            dense = getattr(self, f"dyn_up_{i}")(cur, lf)
             out["dense"].append(dense)
 
             temp = self._temperature(i)
@@ -123,7 +130,8 @@ class DecNet(nn.Module):
             out["cand"].append(cand)
             sparse, var = sparse_matching_with_var(
                 q.contiguous(), rf, lmask, rmask, cur_max_disp,
-                moments=moments)
+                use_kernel=self.use_kernels)
+            var = var.detach()
             out["sparse_raw"].append(sparse)
             if cfg.cand_fallback:
                 sparse = torch.where(cand > 0, sparse, dense)

@@ -99,11 +99,11 @@ class Refinement(nn.Module):
 
     def forward(self, left_fea: torch.Tensor, right_fea: torch.Tensor,
                 disp: torch.Tensor, max_disp: int,
-                warp: Callable = warp_kernel.warp
+                warp: Callable = warp_kernel.warp_with_grad
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`warp` is the warp kernel's wrapper by default (its plain version
-        on CPU tensors); pass `warp_kernel.warp_plain` to run the plain
-        version on a card."""
+        """`warp` is the differentiable warp over the kernel's wrapper by
+        default (its plain version on CPU tensors); pass a `warp_with_grad`
+        with use_kernel=False to run the plain version on a card."""
         warped = warp(right_fea.contiguous(), disp.float().contiguous(),
                       max_disp).to(left_fea.dtype)
         x = torch.cat([left_fea, warped, disp[:, None].to(left_fea.dtype)],

@@ -1,13 +1,14 @@
-"""Conv building blocks, NCHW/NCDHW, inference only — the port of
-decnet_tpu/nn/layers.py:200-357 and :414-421.
+"""Conv building blocks, NCHW/NCDHW — the port of decnet_tpu/nn/layers.py:
+200-357 and :414-421.
 
-Convolution weights are held in the compute dtype (the JAX package casts
-its f32 kernels to it at every call; casting once at load gives the same
-values).  Batch norm keeps its parameters and statistics in f32, folds them
-into a per-channel multiplier and offset in f32 and casts those to the
-activation dtype, as `FoldedBatchNorm` does in JAX.  Submodule names (`conv`,
-`bn`) are what `weights.py` maps the flax names `Conv_0`/`ConvTranspose_0`
-and `BatchNorm_0` onto."""
+Each unit casts its convolution weights to its compute dtype at every call,
+as the JAX package does.  For serving they are stored in that dtype, so the
+cast is a no-op; for training `train.step.create_train_state` stores them in
+f32, so that the optimizer updates f32 values.  Batch norm keeps its parameters and
+statistics in f32, folds them into a per-channel multiplier and offset in
+f32 and casts those to the activation dtype, as `FoldedBatchNorm` does in
+JAX.  Submodule names (`conv`, `bn`) are what `weights.py` maps the flax
+names `Conv_0`/`ConvTranspose_0` and `BatchNorm_0` onto."""
 from __future__ import annotations
 
 import torch
@@ -16,35 +17,69 @@ import torch.nn.functional as F
 
 
 class FoldedBatchNorm(nn.Module):
-    """Inference batch norm: x * mul + ofs, mul = scale / sqrt(var + eps),
-    ofs = bias - mean * mul, folded in f32 and cast to x's dtype."""
+    """Batch norm: x * mul + ofs, mul = scale / sqrt(var + eps),
+    ofs = bias - mean * mul, folded in f32 and cast to x's dtype.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In eval mode (mean, var) are the running statistics.  In train mode
+    they are the batch statistics in f32 over every axis but the channels
+    (the variance biased), and the running statistics move to
+    momentum * running + (1 - momentum) * batch, in place.  This is the
+    flax convention of the JAX package; torch's own batch norm updates with
+    the unbiased variance and the opposite momentum, so it is not used."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        ofs = self.bias - self.running_mean * mul
+        if self.training:
+            xf = x.float()
+            dims = [0] + list(range(2, x.dim()))
+            mean = xf.mean(dims)
+            var = xf.var(dims, unbiased=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        ofs = self.bias - mean * mul
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * mul.to(x.dtype).view(shape) + ofs.to(x.dtype).view(shape)
 
 
 class _Unit(nn.Module):
-    """conv -> optional batch norm -> optional ReLU."""
+    """conv -> optional batch norm -> optional ReLU, the conv in `dtype`."""
 
-    def __init__(self, conv: nn.Module, out_ch: int, relu: bool, bn: bool):
+    def __init__(self, conv: nn.Module, out_ch: int, relu: bool, bn: bool,
+                 dtype: torch.dtype):
         super().__init__()
         self.conv = conv
         self.bn = FoldedBatchNorm(out_ch) if bn else None
         self.relu = relu
+        self.dtype = dtype
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        conv, dt = self.conv, self.dtype
+        w = conv.weight.to(dt)
+        b = None if conv.bias is None else conv.bias.to(dt)
+        if isinstance(conv, nn.ConvTranspose2d):
+            return F.conv_transpose2d(x.to(dt), w, b, conv.stride,
+                                      conv.padding, conv.output_padding,
+                                      conv.groups, conv.dilation)
+        return conv._conv_forward(x.to(dt), w, b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x.to(self.conv.weight.dtype))
+        x = self._conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.relu else x
@@ -59,7 +94,7 @@ class ConvUnit(_Unit):
         super().__init__(nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
                                    padding=padding, dilation=dilation,
                                    bias=not bn, dtype=dtype),
-                         out_ch, relu, bn)
+                         out_ch, relu, bn, dtype)
 
 
 class DeconvUnit(_Unit):
@@ -72,7 +107,7 @@ class DeconvUnit(_Unit):
         super().__init__(nn.ConvTranspose2d(in_ch, out_ch, kernel_size,
                                             stride=stride, bias=not bn,
                                             dtype=dtype),
-                         out_ch, relu, bn)
+                         out_ch, relu, bn, dtype)
 
 
 class Conv3dUnit(_Unit):
@@ -83,7 +118,7 @@ class Conv3dUnit(_Unit):
                  bn: bool = True, dtype=torch.float32):
         super().__init__(nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride,
                                    padding=padding, bias=not bn, dtype=dtype),
-                         out_ch, relu, bn)
+                         out_ch, relu, bn, dtype)
 
 
 def unfold_nonoverlap(x: torch.Tensor, k: int) -> torch.Tensor:

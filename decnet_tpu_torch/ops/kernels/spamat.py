@@ -1,5 +1,6 @@
-"""Sparse-matching moments: the CUDA kernel `csrc/spamat_moments.cu` and
-its plain PyTorch version.
+"""Sparse matching, forward moments and backward: the CUDA kernels
+`csrc/spamat_moments.cu` and `csrc/spamat_backward.cu` and their plain
+PyTorch versions.
 
 Port of decnet_tpu/ops/pallas/spamat.py::_moments_kernel (the TPU kernel)
 and of its XLA twin decnet_tpu/ops/matching.py::matching_moments (:67-112),
@@ -14,8 +15,19 @@ with e = exp(s(d) - m) and s(d) the feature dot product.  A query with no
 candidate gets se = sed = sed2 = 0.  Queries with ref_mask == 0 may hold any
 value: every consumer gates by ref_mask.
 
-Features are NCHW (B,C,H,W), bf16 or f32 (scores accumulate in f32); masks
-and center are (B,H,W) f32; the four outputs are (B,H,W) f32.
+The backward is the port of decnet_tpu/ops/pallas/spamat.py::_dref_kernel
+and ::_dtar_kernel (the TPU kernels) and of their XLA twin
+decnet_tpu/ops/matching.py::_spamat_bwd_xla (:178-211), whose loop over d
+`spamat_backward_plain` reproduces.  With w = g / sum_sim on queries with
+ref_mask != 0 (0 elsewhere) and e(q,k) = exp(s(q,k) - max_cost[q]) over the
+candidate pairs of the forward:
+
+    grad_ref[q] = w[q] * sum_k e(q,k) * (d - out[q]) * tar[k]
+    grad_tar[k] = sum_q e(q,k) * (d - out[q]) * w[q] * ref[q],  k unmasked
+
+Features are NCHW (B,C,H,W), bf16 or f32 (scores accumulate in f32); masks,
+center and the per-query maps are (B,H,W) f32; the moments are (B,H,W) f32
+and the gradients come back in the features' dtype.
 """
 from __future__ import annotations
 
@@ -32,6 +44,13 @@ _NEG = -3.0e38  # the reference's stand-in for -inf
 
 _SIGNATURES = {"spamat_moments": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                + [ctypes.c_void_p]}
+# spamat_dref / spamat_dtar: 7 inputs, 1 output, B, C, H, W, max_disp,
+# window, is_bf16, stream
+_BWD_SIGNATURES = {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p]
+                   for name in ("spamat_dref", "spamat_dtar")}
+MAX_BWD_CHANNELS = 72   # the backward kernels keep C accumulators a thread,
+#                        one instance per model stage: C = 8, 24, 72
 
 Moments = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -69,19 +88,25 @@ def moments_plain(ref: torch.Tensor, tar: torch.Tensor,
     return m_fin, se * r, sed * r, sed2 * r
 
 
-def _check(ref, tar, ref_mask, tar_mask, max_disp, center, window):
+def _check(ref, tar, maps, max_disp, window, max_channels=None):
+    """Validate a kernel's features (B,C,H,W) and its f32 (B,H,W) maps
+    (masks, per-query maps, center when window > 0)."""
     if ref.dtype not in (torch.float32, torch.bfloat16) or tar.dtype != ref.dtype:
         raise TypeError(f"features must share dtype f32 or bf16, got "
                         f"{ref.dtype}/{tar.dtype}")
     if ref.dim() != 4 or tar.shape != ref.shape:
         raise ValueError(f"ref/tar must be (B,C,H,W) of one shape, got "
                          f"{tuple(ref.shape)}/{tuple(tar.shape)}")
-    B, _, H, W = ref.shape
-    maps = [ref_mask, tar_mask] + ([center] if window > 0 else [])
+    B, C, H, W = ref.shape
+    if max_channels is not None and (C > max_channels
+                                     or ref.numel() >= 2 ** 31):
+        raise ValueError(f"unsupported size C={C} (at most {max_channels}),"
+                         f" {ref.numel()} values")
     for t in maps:
         if t is None or t.dtype != torch.float32 or t.shape != (B, H, W):
-            raise ValueError(f"masks/center must be f32 (B,H,W)=({B},{H},{W})")
-    for t in [ref, tar] + maps:
+            raise ValueError(f"masks and per-query maps must be f32 "
+                             f"(B,H,W)=({B},{H},{W})")
+    for t in [ref, tar] + list(maps):
         if t.device != ref.device or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous on one device")
     if max_disp < 1 or window < 0:
@@ -100,7 +125,8 @@ def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
     if ref.device.type != "cuda":
         raise ValueError(f"unsupported device {ref.device}")
     window = int(window) if center is not None else 0
-    _check(ref, tar, ref_mask, tar_mask, max_disp, center, window)
+    _check(ref, tar, [ref_mask, tar_mask] + ([center] if window > 0 else []),
+           max_disp, window)
     B, C, H, W = ref.shape
     lib = build.load("spamat_moments", _SIGNATURES)
     out = torch.empty((4, B, H, W), dtype=torch.float32, device=ref.device)
@@ -120,3 +146,121 @@ def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
 
 
 moments.launches = 0
+
+
+def query_weight(g: torch.Tensor, ref_mask: torch.Tensor,
+                 sum_sim: torch.Tensor) -> torch.Tensor:
+    """w = g / sum_sim on queries with ref_mask != 0, else 0, in f32 (as
+    g * (1 / sum_sim), the XLA twin's rounding)."""
+    refm = ref_mask != 0
+    inv_ss = torch.where(refm, 1.0 / torch.where(refm, sum_sim.float(), 1.0),
+                         0.0)
+    return g.float() * inv_ss
+
+
+def spamat_backward_plain(ref: torch.Tensor, tar: torch.Tensor,
+                          ref_mask: torch.Tensor, tar_mask: torch.Tensor,
+                          out: torch.Tensor, sum_sim: torch.Tensor,
+                          max_cost: torch.Tensor, g: torch.Tensor,
+                          max_disp: int, center: Optional[torch.Tensor] = None,
+                          window: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grad_ref, grad_tar) as a loop over d = 0..max_disp-1 in f32; the
+    key side accumulates into a left-padded buffer, the mirror of the
+    forward's shifted slices."""
+    B, C, H, W = ref.shape
+    dp = max_disp - 1
+    ref32 = ref.float()
+    tarp = F.pad(tar.float(), (dp, 0))
+    okp = F.pad((tar_mask != 0).float(), (dp, 0))
+    refm = ref_mask != 0
+    w = query_weight(g, ref_mask, sum_sim)
+    out = out.float()
+    max_cost = max_cost.float()
+    gref = torch.zeros_like(ref32)
+    gtarp = torch.zeros_like(tarp)
+    for d in range(max_disp):
+        lo = dp - d
+        tar_d = tarp[..., lo:lo + W]
+        ok = (okp[..., lo:lo + W] > 0) & refm
+        if window > 0:
+            ok = ok & ((d - center.float()).abs() <= window)
+        s = (ref32 * tar_d).sum(dim=1)
+        e = torch.where(ok, torch.exp(s - max_cost), 0.0)
+        coef = (e * (d - out) * w)[:, None]
+        gref += coef * tar_d
+        gtarp[..., lo:lo + W] += coef * ref32
+    gref = gref * refm[:, None]
+    gtar = gtarp[..., dp:] * (tar_mask != 0)[:, None]
+    return gref.to(ref.dtype), gtar.to(tar.dtype)
+
+
+def _launch_bwd(name, feats, maps, center, window, max_disp, out_like):
+    """Launch `spamat_dref` or `spamat_dtar`: feats = (own side, other
+    side), maps = (tar_mask, max_cost, out, w)."""
+    if out_like.device.type != "cuda":
+        raise ValueError(f"{name} is a CUDA kernel; got a tensor on "
+                         f"{out_like.device}")
+    window = int(window) if center is not None else 0
+    _check(feats[0], feats[1], list(maps) + ([center] if window > 0 else []),
+           max_disp, window, MAX_BWD_CHANNELS)
+    B, C, H, W = feats[0].shape
+    lib = build.load("spamat_backward", _BWD_SIGNATURES)
+    grad = torch.empty_like(out_like)
+    with torch.cuda.device(out_like.device):
+        rc = getattr(lib, name)(
+            feats[0].data_ptr(), feats[1].data_ptr(),
+            *(t.data_ptr() for t in maps),
+            center.data_ptr() if window > 0 else None, grad.data_ptr(),
+            B, C, H, W, int(max_disp), window,
+            int(out_like.dtype == torch.bfloat16),
+            torch.cuda.current_stream(out_like.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc} "
+                           f"(B,C,H,W={B},{C},{H},{W}, max_disp={max_disp})")
+    return grad
+
+
+def spamat_dref(ref, tar, tar_mask, max_cost, out, w, max_disp, center=None,
+                window=0):
+    """grad_ref by the CUDA kernel (CUDA tensors only); `w` is
+    `query_weight(...)`.  Counts its launches in `spamat_dref.launches`."""
+    grad = _launch_bwd("spamat_dref", (ref, tar), (tar_mask, max_cost, out, w),
+                       center, window, max_disp, ref)
+    spamat_dref.launches += 1
+    return grad
+
+
+def spamat_dtar(ref, tar, tar_mask, max_cost, out, w, max_disp, center=None,
+                window=0):
+    """grad_tar by the CUDA kernel (CUDA tensors only), zero at masked-out
+    keys.  Counts its launches in `spamat_dtar.launches`."""
+    grad = _launch_bwd("spamat_dtar", (tar, ref), (tar_mask, max_cost, out, w),
+                       center, window, max_disp, tar)
+    spamat_dtar.launches += 1
+    return grad
+
+
+spamat_dref.launches = 0
+spamat_dtar.launches = 0
+
+
+def spamat_backward(ref: torch.Tensor, tar: torch.Tensor,
+                    ref_mask: torch.Tensor, tar_mask: torch.Tensor,
+                    out: torch.Tensor, sum_sim: torch.Tensor,
+                    max_cost: torch.Tensor, g: torch.Tensor, max_disp: int,
+                    center: Optional[torch.Tensor] = None, window: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grad_ref, grad_tar): the dRef and dTar CUDA kernels for CUDA
+    tensors, `spamat_backward_plain` for CPU tensors."""
+    if ref.device.type == "cpu":
+        return spamat_backward_plain(ref, tar, ref_mask, tar_mask, out,
+                                     sum_sim, max_cost, g, max_disp, center,
+                                     window)
+    if ref.device.type != "cuda":
+        raise ValueError(f"unsupported device {ref.device}")
+    w = query_weight(g, ref_mask, sum_sim).contiguous()
+    return (spamat_dref(ref, tar, tar_mask, max_cost, out, w, max_disp,
+                        center, window),
+            spamat_dtar(ref, tar, tar_mask, max_cost, out, w, max_disp,
+                        center, window))

@@ -11,6 +11,12 @@ padding).
 
 Features are NCHW (B,C,H,W), bf16 or f32; disp is (B,H,W) f32; the result
 has the features' dtype and is computed in f32.
+
+`warp_with_grad` makes the warp differentiable: its backward is the
+vector-Jacobian product of the unclipped reference warp with respect to
+image and disparity, as decnet_tpu/ops/pallas/warp.py::_fast_bwd (:188-194)
+does.  The JAX package has no kernel for that backward, so neither does the
+port.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from decnet_tpu_torch.ops.kernels import build
+from decnet_tpu_torch.ops.warp import warp_by_disparity
 
 NEG_MARGIN = 16  # how far negative disparities are honoured
 
@@ -112,3 +119,32 @@ def warp(feat: torch.Tensor, disp: torch.Tensor,
 
 
 warp.launches = 0
+
+
+class _Warp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feat, disp, max_disp, use_kernel):
+        ctx.save_for_backward(feat, disp)
+        fn = warp if use_kernel else warp_plain
+        return fn(feat, disp, max_disp)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, disp = ctx.saved_tensors
+        with torch.enable_grad():
+            f = feat.detach().requires_grad_(ctx.needs_input_grad[0])
+            d = disp.detach().requires_grad_(ctx.needs_input_grad[1])
+            ref = warp_by_disparity(f, d)
+            inputs = [t for t in (f, d) if t.requires_grad]
+            grads = iter(torch.autograd.grad(ref, inputs, g.to(ref.dtype)))
+        return (next(grads) if f.requires_grad else None,
+                next(grads) if d.requires_grad else None, None, None)
+
+
+def warp_with_grad(feat: torch.Tensor, disp: torch.Tensor, max_disp: int,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """The warp, differentiable with respect to `feat` and `disp`:
+    forward by `warp` (the kernel on a card, its plain version on CPU
+    tensors) or, with use_kernel=False, by `warp_plain` on any device;
+    backward through the unclipped reference warp."""
+    return _Warp.apply(feat, disp, int(max_disp), bool(use_kernel))

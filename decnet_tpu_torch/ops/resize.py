@@ -53,3 +53,22 @@ def interpolate(img: torch.Tensor, out_h: int, out_w: int,
             img.device, img.dtype)
         img = torch.einsum("ow,bchw->bcho", mx, img)
     return img
+
+
+def downsample_gt(gt: torch.Tensor, down_size: int, mode: str) -> torch.Tensor:
+    """Ground-truth pyramid level: values divided by `down_size`, then
+    resized by it (decnet_tpu/ops/resize.py:64-86).  `gt` (B,H,W); mode
+    bilinear or bicubic (tap matrices), max or min (over each
+    down_size x down_size cell; min ignores gt <= 0)."""
+    B, H, W = gt.shape
+    h, w = H // down_size, W // down_size
+    if mode in ("bilinear", "bicubic"):
+        return interpolate((gt / down_size)[:, None], h, w, mode)[:, 0]
+    if mode == "max":
+        x = (gt / down_size).reshape(B, h, down_size, w, down_size)
+        return x.amax(dim=(2, 4))
+    if mode == "min":
+        tmp = torch.where(gt > 0, gt, 1e6)
+        x = (tmp / down_size).reshape(B, h, down_size, w, down_size)
+        return x.amin(dim=(2, 4))
+    raise ValueError(f"unknown down_func_name {mode}")

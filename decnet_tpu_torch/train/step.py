@@ -1,0 +1,98 @@
+"""Train and eval steps — the port of decnet_tpu/train/step.py:25-150 for
+the multi_stage_regression_uploss path.
+
+A batch is a dict: left/right (B,3,H,W) normalised images, gt (B,H,W)
+(0 = invalid), left_masks/right_masks lists of per-fine-stage (B,h,w)
+binary detail masks, coarsest first."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from decnet_tpu_torch.config import Config
+from decnet_tpu_torch.models.decnet import DecNet
+from decnet_tpu_torch.ops.resize import interpolate
+from decnet_tpu_torch.train import loss as loss_lib
+from decnet_tpu_torch.train import state as state_lib
+from decnet_tpu_torch.train.metrics import epe_and_d1
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (f32 parameters, compute in cfg.model.dtype), its
+    optimizer, the schedule and the number of updates taken."""
+    model: DecNet
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+
+
+def create_train_state(model: DecNet, cfg: Config) -> TrainState:
+    model.float()        # f32 master parameters; units still compute in dtype
+    return TrainState(model, state_lib.make_optimizer(model.parameters(),
+                                                      cfg.train),
+                      state_lib.make_schedule(cfg.train))
+
+
+def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
+                   freeze_bn: bool = False
+                   ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+    """Forward (batch-stat BN, which updates the running stats, or with
+    freeze_bn the running stats as eval uses them), the loss, backward.
+    Returns the logs (the loss terms and "total") and every parameter's
+    gradient, zeros for a parameter the loss does not reach."""
+    mcfg = cfg.model
+    model.train(not freeze_bn)
+    for p in model.parameters():
+        p.grad = None
+    out = model(batch["left"], batch["right"], batch["left_masks"],
+                batch["right_masks"])
+    total, logs = loss_lib.multi_stage_uploss(
+        out, batch["gt"], cfg.loss, mcfg.num_stage, mcfg.down_scale,
+        mcfg.max_disp, mcfg.skip_stage_id)
+    total.backward()
+    logs = {k: v.detach() for k, v in logs.items()}
+    logs["total"] = total.detach()
+    grads = []
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    return logs, grads
+
+
+def train_step(state: TrainState, batch: Dict, cfg: Config,
+               freeze_bn: bool = False) -> Dict[str, torch.Tensor]:
+    """One update: loss and gradients, `grad_norm` (of the unclipped
+    gradients), the global-norm clip, then Adam at the scheduled rate.
+    Returns the logs as device scalars (no host sync)."""
+    logs, grads = loss_and_grads(state.model, batch, cfg, freeze_bn)
+    norm = state_lib.global_norm(grads)
+    state_lib.clip_by_global_norm(grads, norm)
+    state_lib.apply_updates(state.optimizer, state.schedule, state.step)
+    state.step += 1
+    logs["grad_norm"] = norm.detach()
+    return logs
+
+
+@torch.no_grad()
+def eval_step(model: DecNet, batch: Dict, cfg: Config
+              ) -> Dict[str, torch.Tensor]:
+    """epe and d1 of the final prediction, and epe_up0/d1_up0 of the
+    stage-0 prediction upsampled bicubically to full size (the baseline the
+    fine stages must beat)."""
+    model.eval()
+    out = model(batch["left"], batch["right"], batch["left_masks"],
+                batch["right_masks"])
+    gt = batch["gt"]
+    pred = out["preds"][-1]
+    epe, d1 = epe_and_d1(pred, gt, cfg.model.max_disp)
+    coarse = out["preds"][0]
+    H, W = gt.shape[1:]
+    up = interpolate((coarse * (H / coarse.shape[1]))[:, None], H, W,
+                     "bicubic")[:, 0]
+    epe_up0, d1_up0 = epe_and_d1(up, gt, cfg.model.max_disp)
+    return {"epe": epe, "d1": d1, "epe_up0": epe_up0, "d1_up0": d1_up0,
+            "pred": pred}

@@ -1,5 +1,5 @@
-"""Weight bridge: the flax variables of decnet_tpu's DecNet -> the port's
-state_dict, and checkpoint loading.
+"""Weight bridge both ways: the flax variables of decnet_tpu's DecNet <->
+the port's state_dict, and checkpoint loading.
 
 Input is either a `params.npz` snapshot as decnet_tpu/train/checkpoint.py
 writes it (flattened pytree, keys like
@@ -18,6 +18,8 @@ Layouts:
                 :33-37)
   BatchNorm     scale/bias -> weight/bias, batch_stats mean/var ->
                 running_mean/running_var
+`flax_arrays_from_model` is the reverse: the model's state as the flat
+flax-named numpy arrays `params.npz` holds.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
            ("params", "scale"): "weight",
            ("batch_stats", "mean"): "running_mean",
            ("batch_stats", "var"): "running_var"}
+_CONV_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
 
 
 def _parse_key(key: str) -> Tuple[str, ...]:
@@ -102,6 +108,45 @@ def state_dict_from_flax(variables: Union[str, Mapping]
             raise KeyError(f"two flax variables map onto {key}")
         sd[key] = torch.from_numpy(np.array(arr, np.float32))
     return sd
+
+
+def _flax_key(path: Tuple[str, ...]) -> str:
+    return "/".join(f"['{p}']" for p in path)
+
+
+def flax_arrays_from_model(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters and batch-norm statistics as f32 numpy arrays
+    under flattened flax keys ("['params']/['refine_2']/['c0']/['Conv_0']/
+    ['kernel']"), in the JAX layouts: the inverse of `_convert`."""
+    transposed = {name for name, m in model.named_modules()
+                  if isinstance(m, torch.nn.ConvTranspose2d)}
+    arrays = {}
+    for key, t in model.state_dict().items():
+        arr = t.detach().float().cpu().numpy()
+        names = key.split(".")
+        if len(names) == 1 and names[0].startswith("match_logt_"):
+            arrays[_flax_key(("params", names[0]))] = arr
+            continue
+        module, leaf = names[-2], names[-1]
+        if module == "conv":
+            is_t = ".".join(names[:-1]) in transposed
+            collection, flax_leaf = _CONV_LEAVES[leaf]
+            flax_module = "ConvTranspose_0" if is_t else "Conv_0"
+            if leaf == "weight":
+                if is_t:
+                    arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+                elif arr.ndim == 4:
+                    arr = arr.transpose(2, 3, 1, 0)
+                else:
+                    arr = arr.transpose(2, 3, 4, 1, 0)
+        elif module == "bn":
+            collection, flax_leaf = _BN_LEAVES[leaf]
+            flax_module = "BatchNorm_0"
+        else:
+            raise KeyError(f"no flax variable for port tensor {key}")
+        path = (collection,) + tuple(names[:-2]) + (flax_module, flax_leaf)
+        arrays[_flax_key(path)] = np.ascontiguousarray(arr)
+    return arrays
 
 
 def load_flax_variables(model: torch.nn.Module,
