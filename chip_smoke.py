@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (decnet_tpu_torch) on one NVIDIA card.
 
-Builds the port's CUDA kernels with nvcc, holds each against its plain
-PyTorch version on the card and times both: the forward kernels (sparse
-matching moments, disparity warp) at the three fine-stage shapes of one
-540x972 request and of a training batch, the backward kernels (dRef,
-dTar) at the training shapes.  Then it drives the two main paths: it loads
-the faithful checkpoint in bf16 and serves a few seeded synthetic stereo
-requests through `decnet_tpu_torch.cli.demo.predict`, and it trains the
+Builds the port's CUDA kernels with nvcc and the demo's host mask library
+with g++, holds each kernel against its plain PyTorch version on the card
+and times both: the forward kernels (sparse matching moments, disparity
+warp) at the three fine-stage shapes of one 540x972 request and of a
+training batch, the backward kernels (dRef, dTar) at the training shapes,
+once windowed and once on adversarial inputs.  Then it drives the two main
+paths: it loads the faithful checkpoint in bf16 and serves a few seeded
+synthetic stereo requests through `decnet_tpu_torch.cli.demo` (host masks,
+then `predict`), and it trains the
 faithful model from that checkpoint for a few steps through
 `decnet_tpu_torch.cli.train` (batch 8 of 162x486 crops of the on-device
 stream, max_disp 216, bf16, batch-statistic BN), holding a kernel-path step
@@ -65,6 +67,8 @@ WARP_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2.0 ** -7, 1e-6)}
 #            the gradients are stored in bf16, which rounds each by up to
 #            2^-9 relative: 2^-7.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+ADVERSARIAL_SCALE = 50.0  # features the forward skipped, scaled: each such
+#                           pair's score is ~50x a candidate's
 SERVE_MEAN_TOL = 0.05     # px, kernel path vs plain path, mean |delta|
 #   train step, kernel path vs plain path on one batch and one set of
 #   weights: the forward differs only by the moments' summation order (the
@@ -260,15 +264,24 @@ def backward_residuals(torch, spamat, ref, tar, rm, tm, D, center=None,
 
 def backward_parity(torch, spamat, gen, flush_buf):
     """The dRef and dTar kernels against `spamat_backward_plain` at the
-    training stage shapes (B = 8), f32 and bf16, and once windowed; times
-    in bf16.  Returns per-kernel records."""
+    training stage shapes (B = 8), f32 and bf16, once windowed, and once
+    adversarial: the features of masked-out keys and of inactive queries
+    scaled by ADVERSARIAL_SCALE, so that every pair the forward skipped
+    outscores max_cost (0 at an inactive query) by far, and an ungated exp
+    overflows.  Times in bf16.  Returns per-kernel records."""
     rec = {"spamat_dref": [], "spamat_dtar": []}
-    cases = [(shape, dt, 0) for shape in TRAIN_STAGES
+    cases = [(shape, dt, 0, False) for shape in TRAIN_STAGES
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((TRAIN_STAGES[1], torch.float32, 6))
-    for (C, H, W, D), dt, window in cases:
+    cases.append((TRAIN_STAGES[1], torch.float32, 6, False))
+    cases.append((TRAIN_STAGES[0], torch.bfloat16, 0, True))
+    for (C, H, W, D), dt, window, adversarial in cases:
         B = TRAIN_B
         rm, tm, feat32, tar32, disp = stage_inputs(torch, gen, B, C, H, W, D)
+        if adversarial:
+            feat32 = torch.where((rm == 0)[:, None], feat32 * ADVERSARIAL_SCALE,
+                                 feat32)
+            tar32 = torch.where((tm == 0)[:, None], tar32 * ADVERSARIAL_SCALE,
+                                tar32)
         dname = str(dt).split(".")[-1]
         ref, tar = feat32.to(dt), tar32.to(dt)
         center = disp if window else None
@@ -283,19 +296,21 @@ def backward_parity(torch, spamat, gen, flush_buf):
         torch.cuda.synchronize()
         pairs = candidate_pairs(torch, rm, tm, D)
         for name, gk, gp in zip(rec, got, want):
-            if not torch.isfinite(gk.float()).all():
-                fail(f"{name} C={C} {dname} window={window}: non-finite "
-                     f"output")
+            case = (f"{name} C={C} H={H} W={W} D={D} {dname} window={window}"
+                    + (" adversarial" if adversarial else ""))
+            if not (torch.isfinite(gk.float()).all()
+                    and torch.isfinite(gp.float()).all()):
+                fail(f"{case}: non-finite output")
             scale = float(gp.float().abs().max())
             err = float((gk.float() - gp.float()).abs().max())
             rel = err / max(scale, 1e-30)
             if not rel <= BWD_TOL[dname]:
-                fail(f"{name} C={C} H={H} W={W} D={D} {dname} window="
-                     f"{window}: max err {err:.3e} = {rel:.3e} of the "
-                     f"largest gradient, past {BWD_TOL[dname]:.3g}")
+                fail(f"{case}: max err {err:.3e} = {rel:.3e} of the largest "
+                     f"gradient, past {BWD_TOL[dname]:.3g}")
             r = {"shape": [B, C, H, W, D], "dtype": dname, "window": window,
-                 "max_abs_err": err, "rel_err": rel, "max_grad": scale}
-            if dt == torch.bfloat16 and not window:
+                 "adversarial": adversarial, "max_abs_err": err,
+                 "rel_err": rel, "max_grad": scale}
+            if dt == torch.bfloat16 and not window and not adversarial:
                 kernel = getattr(spamat, name)
                 # ref, tar, 4 f32 maps in; one gradient out; per candidate
                 # pair 2C flops for the score, 2C to accumulate, ~8 more
@@ -312,11 +327,11 @@ def backward_parity(torch, spamat, gen, flush_buf):
                     bytes=nbytes, flops=flops, pairs=pairs, bound_ms=bms,
                     bound_by=by, library_ms=None)
             rec[name].append(r)
-            print(f"  {name} B={B} C={C} {H}x{W} D={D} {dname} window="
-                  f"{window}: " + " ".join(
-                      f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                      for k, v in r.items()
-                      if k not in ("shape", "dtype", "window")), flush=True)
+            print(f"  {case}: " + " ".join(
+                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in r.items()
+                if k not in ("shape", "dtype", "window", "adversarial")),
+                flush=True)
     return rec
 
 
@@ -510,9 +525,8 @@ def main():
             and os.path.isfile(os.path.join(CKPT, "params.npz"))):
         fail(f"{ROOT} does not hold the port and its checkpoint")
     sys.path.insert(0, ROOT)
-    from decnet_tpu_torch.cli.demo import predict
+    from decnet_tpu_torch.cli.demo import host_masks, predict
     from decnet_tpu_torch.data.synthetic import synthetic_pair
-    from decnet_tpu_torch.ops.detail import detail_masks
     from decnet_tpu_torch.ops.kernels import build
     from decnet_tpu_torch.ops.kernels import spamat
     from decnet_tpu_torch.ops.kernels import warp as kwarp
@@ -534,7 +548,8 @@ def main():
 
     # -- 2. build
     t0 = time.perf_counter()
-    results = build.build(["spamat_moments", "warp", "spamat_backward"])
+    results = build.build(["spamat_moments", "warp", "spamat_backward",
+                           "spamat_dtar", build.HOST_LIB])
     for r in results:
         for line in r.ptxas.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -559,7 +574,7 @@ def main():
     with torch.no_grad():
         bwd = backward_parity(torch, spamat, gen, flush_buf)
     phase("backward_parity", t0, shapes=len(TRAIN_STAGES), dtypes=2,
-          windowed=1, **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
+          windowed=1, adversarial=1, **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
                          for k, v in bwd.items()})
 
     # -- 4. load
@@ -575,26 +590,34 @@ def main():
     requests = [synthetic_pair(H, W, gen, DEV)
                 for _ in range(REQUESTS + 1)]
     warm, requests = requests[0], requests[1:]
-    # the plain-path comparison below recomputes the masks: they must repeat
-    a, b = (detail_masks(requests[0][0], 3, 3) for _ in range(2))
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
-        fail("detail masks are not deterministic on this card")
-    predict(model, warm[0], warm[1], D)
+
+    def serve(left, right):
+        """One request as the demo serves it: host masks, then predict."""
+        masks = host_masks(left, right, model.cfg)
+        t_masks = time.perf_counter()
+        return predict(model, left, right, *masks, D), masks, t_masks
+
+    serve(warm[0], warm[1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spamat.moments.launches = 0
     kwarp.warp.launches = 0
-    preds, lat = [], []
+    preds, masks, lat, mask_ms = [], [], [], []
     for left, right, _, _ in requests:
         t = time.perf_counter()
-        preds.append(predict(model, left, right, D))
+        pred, m, t_masks = serve(left, right)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
+        mask_ms.append((t_masks - t) * 1e3)
+        preds.append(pred)
+        masks.append(m)
     launches = {"spamat_moments": spamat.moments.launches,
                 "warp": kwarp.warp.launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, ms in enumerate(lat):
         print(f"  request {i}: {ms:.3f} ms", flush=True)
+    print("  host masks (inside each request): "
+          + ", ".join(f"{x:.3f}" for x in mask_ms) + " ms", flush=True)
     want = 3 * REQUESTS
     for k, n in launches.items():
         if n != want:
@@ -610,8 +633,8 @@ def main():
         epes.append(float((pred - gt).abs()[valid].mean()))
     model.use_kernels = False
     deltas = []
-    for pred, (left, right, _, _) in zip(preds, requests):
-        plain = predict(model, left, right, D)
+    for pred, m, (left, right, _, _) in zip(preds, masks, requests):
+        plain = predict(model, left, right, *m, D)
         deltas.append((plain - pred).abs().flatten())
     model.use_kernels = True
     delta = torch.cat(deltas)
@@ -626,6 +649,7 @@ def main():
     torch.cuda.empty_cache()
     phase("serve", t0, requests=REQUESTS, size=f"{H}x{W}", max_disp=D,
           latency_ms=",".join(f"{x:.3f}" for x in lat),
+          host_masks_ms=",".join(f"{x:.3f}" for x in mask_ms),
           peak_mem_mb=f"{peak_mb:.1f}", launches=json.dumps(launches),
           plain_mean_abs_delta_px=f"{mean_delta:.5g}",
           plain_p999_abs_delta_px=f"{p999:.5g}",
@@ -662,7 +686,7 @@ def main():
                         "decnet_tpu/ops/pallas/warp.py:49"),
                "spamat_dref": ("decnet_tpu_torch/csrc/spamat_backward.cu",
                                "decnet_tpu/ops/pallas/spamat.py:239"),
-               "spamat_dtar": ("decnet_tpu_torch/csrc/spamat_backward.cu",
+               "spamat_dtar": ("decnet_tpu_torch/csrc/spamat_dtar.cu",
                                "decnet_tpu/ops/pallas/spamat.py:287")}
 
     def summed(recs):
@@ -696,7 +720,8 @@ def main():
             json.dump({"card": card, "kind": kind, "parity": parity,
                        "parity_extra": extra, "parity_train": parity_train,
                        "backward": bwd, "train": train,
-                       "latency_ms": lat, "peak_mem_mb": peak_mb,
+                       "latency_ms": lat, "host_masks_ms": mask_ms,
+                       "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,
                        "plain_p999_abs_delta_px": p999, "kernels": kernels,
                        "wall_s": time.perf_counter() - t_all}, f, indent=1)

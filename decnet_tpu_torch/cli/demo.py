@@ -2,8 +2,9 @@
 
 For each scene directory under --root holding im0.png/im1.png (and an
 optional calib.txt with ndisp): pad to x27, compute the detail masks on the
-device, normalise, run DecNet, crop back, and write `<scene>.png` (uint16,
-disparity * 256) into --save2where.
+host as the JAX demo does (`data/masks.py::detail_masks_np`, the native
+library), normalise, run DecNet, crop back, and write `<scene>.png`
+(uint16, disparity * 256) into --save2where.
 
 Usage:
   python -m decnet_tpu_torch.cli.demo --root InputData/Sceneflow \
@@ -14,32 +15,50 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from decnet_tpu_torch.config import ModelConfig
 from decnet_tpu_torch.data import io as dio
+from decnet_tpu_torch.data import masks as dmasks
 from decnet_tpu_torch.models.decnet import DecNet
-from decnet_tpu_torch.ops.detail import detail_masks
 from decnet_tpu_torch.weights import load_checkpoint
 
 MASK_THOLD = 0.3      # the demo's precomputed-mask threshold
 PAD_MULTIPLE = 27
 
 
+def host_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig,
+               mask_thold: float = MASK_THOLD
+               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The JAX demo's detail masks of a stereo pair (B,3,H,W) in [0,1]:
+    padded to x27 as `predict` pads it and computed on the host, all images
+    at once (one thread each).  Returns (left, right) lists of (B,h,w) f32
+    masks, coarsest first, on the images' device."""
+    pair = torch.cat([left, right]).float()
+    imgs = dio.pad_to_multiple(pair, PAD_MULTIPLE).permute(0, 2, 3, 1)
+    per = dmasks.detail_masks_batch(imgs.cpu().numpy(), cfg.down_scale,
+                                    cfg.num_stage - 1, mask_thold)
+    levels = [torch.from_numpy(np.stack(lv)).to(left.device)
+              for lv in zip(*per)]
+    B = left.shape[0]
+    return [m[:B] for m in levels], [m[B:] for m in levels]
+
+
 @torch.no_grad()
 def predict(model: DecNet, left: torch.Tensor, right: torch.Tensor,
-            max_disp: int, mask_thold: float = MASK_THOLD) -> torch.Tensor:
+            lmasks: Sequence[torch.Tensor], rmasks: Sequence[torch.Tensor],
+            max_disp: int) -> torch.Tensor:
     """Disparity (B,H,W) f32 for a stereo pair (B,3,H,W) in [0,1] on the
-    model's device: pad to x27, detail masks, normalise, forward, crop."""
-    cfg = model.cfg
+    model's device and its padded images' detail masks (`host_masks`):
+    pad to x27, normalise, forward, crop."""
     h, w = left.shape[-2:]
     lp = dio.pad_to_multiple(left.float(), PAD_MULTIPLE)
     rp = dio.pad_to_multiple(right.float(), PAD_MULTIPLE)
-    levels = cfg.num_stage - 1
-    lmasks = detail_masks(lp, cfg.down_scale, levels, mask_thold)
-    rmasks = detail_masks(rp, cfg.down_scale, levels, mask_thold)
     out = model(dio.normalize_image(lp), dio.normalize_image(rp),
-                lmasks, rmasks, max_disp=max_disp)
+                list(lmasks), list(rmasks), max_disp=max_disp)
     return out["preds"][-1][:, -h:, -w:]
 
 
@@ -71,8 +90,9 @@ def main(argv=None):
         left, right = load("im0.png"), load("im1.png")
         ndisp = (dio.read_calib_ndisp(os.path.join(sdir, "calib.txt"))
                  or args.max_disp or model.cfg.max_disp)
+        lmasks, rmasks = host_masks(left, right, model.cfg, args.mask_thold)
         t0 = time.perf_counter()
-        pred = predict(model, left, right, int(ndisp), args.mask_thold)
+        pred = predict(model, left, right, lmasks, rmasks, int(ndisp))
         pred = pred[0].cpu().numpy()     # waits for the device
         dt = time.perf_counter() - t0
         dio.write_submission_png(os.path.join(args.save2where, name + ".png"),

@@ -1,7 +1,8 @@
 """Where a served request's or a training step's time goes on the card.
 
 --mode serve (default): loads a checkpoint, serves one warm-up and then
-three seeded synthetic 540x972 requests through `predict`.
+three seeded synthetic 540x972 requests through `host_masks` and
+`predict`.
 --mode train: prepares the train CLI's run from the checkpoint and its
 config.json (batch 8 of 162x486 crops of the on-device stream), takes one
 warm-up step and then three steps.
@@ -24,7 +25,7 @@ import time
 import torch
 
 from decnet_tpu_torch.cli import train as train_cli
-from decnet_tpu_torch.cli.demo import predict
+from decnet_tpu_torch.cli.demo import host_masks, predict
 from decnet_tpu_torch.data.synthetic import synthetic_pair
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.weights import load_checkpoint
@@ -56,12 +57,16 @@ def _serve_work(resume, dev):
     gen.manual_seed(SEED)
     reqs = [synthetic_pair(H, W, gen, dev) for _ in range(REQUESTS + 1)]
 
+    def serve(left, right):
+        masks = host_masks(left, right, model.cfg)
+        predict(model, left, right, *masks, D)
+
     def warm():
-        predict(model, reqs[0][0], reqs[0][1], D)
+        serve(reqs[0][0], reqs[0][1])
 
     def work():
         for left, right, _, _ in reqs[1:]:
-            predict(model, left, right, D)
+            serve(left, right)
     return warm, work, f"requests {H}x{W} max_disp {D}"
 
 

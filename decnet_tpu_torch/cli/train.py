@@ -15,8 +15,11 @@ Usage:
       [--init_from runs/ckpt_faithful] [--set train.batch_size=4 ...] \
       [--eval_split val --eval_every 50 --eval_batches 4] [--device cuda]
 
---init_from reads a params.npz directory (strict: every array must fit).
-Orbax resume of the optimizer state and partial warm starts are not ported.
+--init_from warm-starts from a params.npz directory, as the JAX CLI's
+`restore_partial` does from an Orbax directory: every parameter and BN
+statistic whose key and shape match is copied, the rest keep their fresh
+initialisation, and the optimizer and step start fresh.  Orbax resume of
+the optimizer state is not ported.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from decnet_tpu_torch.models.decnet import DecNet
 from decnet_tpu_torch.train.checkpoint import save_params
 from decnet_tpu_torch.train.step import (TrainState, create_train_state,
                                          eval_step, train_step)
-from decnet_tpu_torch.weights import load_flax_variables
+from decnet_tpu_torch.weights import warm_start
 
 EVAL_KEYS = ("epe", "d1", "epe_up0", "d1_up0")
 
@@ -55,7 +58,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=None,
                    help="train.total_steps (also sets the schedule's length)")
     p.add_argument("--init_from", default=None,
-                   help="directory with a params.npz to start from")
+                   help="warm start: a directory with a params.npz; "
+                   "what matches by key and shape is loaded")
     p.add_argument("--eval_split", default=None,
                    help="any value: evaluate on the validation stream")
     p.add_argument("--eval_every", type=int, default=2000)
@@ -110,8 +114,7 @@ def prepare(argv=None) -> Run:
     dev = resolve_device(args.device)
     state = create_train_state(DecNet(cfg.model).to(dev), cfg)
     if args.init_from:
-        load_flax_variables(state.model, os.path.join(args.init_from,
-                                                      "params.npz"))
+        warm_start(state.model, os.path.join(args.init_from, "params.npz"))
     gen_kw = dict(batch=cfg.train.batch_size, h=cfg.train.crop_h,
                   w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
                   scale=cfg.model.down_scale, levels=cfg.model.num_stage - 1,

@@ -1,18 +1,18 @@
-// Backward of sparse stereo matching (SpaMat), for Hopper: two kernels.
+// Gradient of the query features of sparse stereo matching (dRef), for
+// Hopper.
 //
-// Replaces: decnet_tpu/ops/pallas/spamat.py::_dref_kernel (dRef) and
-// ::_dtar_kernel (dTar), both launched by _spamat_backward_rows_impl, the
-// backward of the fused matching + variance op on the three fine stages of
-// DecNet in training.
+// Replaces: decnet_tpu/ops/pallas/spamat.py::_dref_kernel (launched by
+// _spamat_backward_rows_impl), half of the backward of the fused matching
+// + variance op on the three fine stages of DecNet in training.  Its twin
+// dTar is in spamat_dtar.cu.
 //
 // With w[q] = g[q] / sum_sim[q] on queries with ref_mask != 0 (0 elsewhere;
 // the wrapper computes it), and for every candidate pair of the forward --
 // key k = q - d, d in [0, D), k >= 0, tar_mask[k] != 0, and
 // |d - center[q]| <= window when window > 0 -- the score
 // s(q,k) = sum_c ref[c,q] * tar[c,k] in f32 and e = exp(s - max_cost[q]):
-//   dRef:  grad_ref[q] = sum_k e * (d - out[q]) * w[q] * tar[k]
-//   dTar:  grad_tar[k] = sum_q e * (d - out[q]) * w[q] * ref[q]
-// Both are zero at inactive queries (w == 0) and at masked-out keys.
+//   grad_ref[q] = sum_k e * (d - out[q]) * w[q] * tar[k],
+// zero at inactive queries (w == 0).
 //
 // NaN safety.  A pair is gated by the query weight and the key mask BEFORE
 // the exp, never by multiplying afterwards: a masked-out key may outscore
@@ -20,34 +20,27 @@
 // ref_mask == 0 has max_cost == 0, so exp could overflow to inf and inf * 0
 // is NaN.  A query with no candidate has w = 1e6 * g but visits no pair.
 // The scores are recomputed with the forward kernel's arithmetic (fmaf over
-// c in order), so a visited pair has s <= max_cost.
+// c ascending from 0), so a visited pair has s <= max_cost.
 //
 // Bound on this card: bytes.  At the training stage-3 shape (B = 8, C = 8,
-// 162x486, D = 216, bf16 features) each kernel reads both feature maps and
+// 162x486, D = 216, bf16 features) the kernel reads both feature maps and
 // four f32 maps and writes one bf16 gradient once: ~40 MB, ~12 us at
 // 3.35 TB/s; the 4C + ~8 flops of the candidate pairs that ~20%-dense masks
-// leave are a few times fewer.  This simple version is expected to sit well
-// above that bound (PERF.md has its times): a thread walks its pairs one by
-// one, with an exp and 2C FMAs each.
+// leave are a few times fewer.  This simple version sits well above that
+// bound (PERF.md has its times): its staging loop waits for each load
+// before the next, and a thread walks its pairs one by one, with an exp
+// and 2C FMAs each.
 //
-// Design.  The TPU kernels build a dense (rows x 128 x band) score tile on
-// the MXU; here the work is sparse, so both kernels follow the forward
-// kernel's second version.
-//   dRef, query side: one block per (b, row, 128 queries).  It stages the
-//   key window (128 + D - 1) x C in shared memory (f32) and the key mask as
-//   one bit per slot, queues its active queries (w != 0) so that whole warps
-//   hold active queries, and each thread walks the set key bits of its
-//   query's band, d ascending, with the query's features and its C
-//   gradient sums in registers.
-//   dTar, key side: the gather form, not a scatter.  One block per
-//   (b, row, 128 keys) stages the queries q in [k0, k0 + 128 + D - 1) --
-//   their features, max_cost, out, w (and center) -- and the active-query
-//   bits; each thread takes one unmasked key, walks the set query bits of
-//   q in [k, k + D), d ascending, and writes its own C outputs.  No atomics:
-//   every output is written by one thread, so results are deterministic.
-// C is a template bound, one per model stage (8, 24 or 72: the register
-// arrays need a compile-time size); the runtime C <= that bound, and a
-// wider C is refused.
+// Design.  The TPU kernel builds a dense (rows x 128 x band) score tile on
+// the MXU; here the work is sparse, so the kernel follows the forward
+// kernel's second version: one block per (b, row, 128 queries) stages the
+// key window (128 + D - 1) x C in shared memory (f32) and the key mask as
+// one bit per slot, queues its active queries (w != 0) so that whole warps
+// hold active queries, and each thread walks the set key bits of its
+// query's band, d ascending, with the query's features and its C gradient
+// sums in registers.  C is a template bound, one per model stage (8, 24 or
+// 72: the register arrays need a compile-time size); the runtime C <= that
+// bound, and a wider C is refused.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -175,118 +168,16 @@ dref_kernel(const T* __restrict__ ref, const T* __restrict__ tar,
 }
 
 template <typename T, int CT>
-__global__ void __launch_bounds__(kT)
-dtar_kernel(const T* __restrict__ tar, const T* __restrict__ ref,
-            const float* __restrict__ tar_mask,
-            const float* __restrict__ max_cost,
-            const float* __restrict__ out, const float* __restrict__ wq,
-            const float* __restrict__ center, T* __restrict__ gtar,
-            int C, int H, int W, int D, int window) {
-  extern __shared__ float smem[];
-  __shared__ int warp_count[kT / 32];
-  const int QW = kT + D - 1;
-  const int n_words = (QW + 31) / 32;
-  float* q_s = smem;                    // [C][QW] query features
-  float* mc_s = q_s + C * QW;           // [QW] per-query maps
-  float* out_s = mc_s + QW;
-  float* w_s = out_s + QW;
-  float* cen_s = w_s + QW;              // [QW], used when window > 0
-  unsigned* q_bits = reinterpret_cast<unsigned*>(cen_s + QW);
-  int* queue = reinterpret_cast<int*>(q_bits + n_words);     // [kT]
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int k = k0 + tid;
-  const bool in_row = k < W;
-  const size_t row = ((size_t)b * H + h) * W;
-  const size_t plane = (size_t)H * W;
-  const size_t feat_row = (size_t)b * C * plane + (size_t)h * W;
-  const bool key_ok = in_row && tar_mask[row + k] != 0.f;
-
-  if (in_row && !key_ok) zero_column(gtar, feat_row + k, plane, C);
-  if (!__syncthreads_or(key_ok)) return;
-
-  // Stage the active-query bits and maps of the query window.
-  bool any_q = false;
-  for (int j = tid; j < n_words * 32; j += kT) {              // warp-uniform
-    const int col = k0 + j;
-    const bool inw = j < QW && col < W;
-    const float wv = inw ? wq[row + col] : 0.f;
-    const bool ok = wv != 0.f;
-    any_q |= ok;
-    const unsigned bits = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) q_bits[j >> 5] = bits;
-    if (inw) {
-      w_s[j] = wv;
-      mc_s[j] = max_cost[row + col];
-      out_s[j] = out[row + col];
-      cen_s[j] = window > 0 ? center[row + col] : 0.f;
-    }
-  }
-  if (!__syncthreads_or(any_q)) {
-    if (key_ok) zero_column(gtar, feat_row + k, plane, C);
-    return;
-  }
-  for (int c = 0; c < C; ++c) {
-    const T* src = ref + feat_row + (size_t)c * plane;
-    for (int j = tid; j < QW; j += kT) {
-      const int col = k0 + j;
-      q_s[c * QW + j] = col < W ? to_f32(src[col]) : 0.f;
-    }
-  }
-  const int n_active = queue_active(key_ok, queue, warp_count);
-  if (tid >= n_active) return;
-
-  const int kt = queue[tid];
-  const int kc = k0 + kt;
-  float kv[CT], acc[CT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    kv[c] = c < C ? to_f32(tar[feat_row + (size_t)c * plane + kc]) : 0.f;
-    acc[c] = 0.f;
-  }
-  const float win = (float)window;
-  const int lo = kt;                              // query slot of d = 0
-  const int hi = kt + min(D, W - kc) - 1;         // slot of the largest d
-  for (int wi = lo >> 5; wi <= (hi >> 5); ++wi) {
-    const int s0 = wi << 5;
-    unsigned bits = q_bits[wi];
-    if (hi - s0 < 31) bits &= (2u << (hi - s0)) - 1u;
-    if (lo > s0) bits &= ~((1u << (lo - s0)) - 1u);
-    while (bits) {                                // lowest slot first: d up
-      const int bit = __ffs(bits) - 1;
-      bits &= bits - 1u;
-      const int j = s0 + bit;
-      const float fd = (float)(j - kt);
-      if (window > 0 && fabsf(fd - cen_s[j]) > win) continue;
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-        if (c < C) s = fmaf(q_s[c * QW + j], kv[c], s);
-      const float coef = expf(s - mc_s[j]) * (fd - out_s[j]) * w_s[j];
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-        if (c < C) acc[c] = fmaf(coef, q_s[c * QW + j], acc[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-    if (c < C) store(gtar + feat_row + (size_t)c * plane + kc, acc[c]);
-}
-
-template <typename T, int CT, bool kRef>
 int launch_ct(const void* own, const void* other, const void* tar_mask,
               const void* max_cost, const void* out, const void* w,
               const void* center, void* grad, int B, int C, int H, int W,
               int D, int window, cudaStream_t stream) {
   const size_t span = kT + D - 1;
-  const size_t smem = kRef
-      ? sizeof(float) * C * span + sizeof(unsigned) * ((span + 31) / 32)
-            + sizeof(int) * kT
-      : sizeof(float) * (C + 4) * span + sizeof(unsigned) * ((span + 31) / 32)
-            + sizeof(int) * kT;
+  const size_t smem = sizeof(float) * C * span
+                      + sizeof(unsigned) * ((span + 31) / 32)
+                      + sizeof(int) * kT;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = kRef ? dref_kernel<T, CT> : dtar_kernel<T, CT>;
+  auto kernel = dref_kernel<T, CT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -302,37 +193,20 @@ int launch_ct(const void* own, const void* other, const void* tar_mask,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kRef>
+template <typename T>
 int launch(const void* own, const void* other, const void* tar_mask,
            const void* max_cost, const void* out, const void* w,
            const void* center, void* grad, int B, int C, int H, int W, int D,
            int window, cudaStream_t s) {
 #define DECNET_BWD_CT(CT)                                                   \
   if (C <= CT)                                                              \
-    return launch_ct<T, CT, kRef>(own, other, tar_mask, max_cost, out, w,   \
-                                  center, grad, B, C, H, W, D, window, s);
+    return launch_ct<T, CT>(own, other, tar_mask, max_cost, out, w, center, \
+                            grad, B, C, H, W, D, window, s);
   DECNET_BWD_CT(8)
   DECNET_BWD_CT(24)
   DECNET_BWD_CT(72)
 #undef DECNET_BWD_CT
   return (int)cudaErrorInvalidValue;
-}
-
-template <bool kRef>
-int dispatch(const void* own, const void* other, const void* tar_mask,
-             const void* max_cost, const void* out, const void* w,
-             const void* center, void* grad, int B, int C, int H, int W,
-             int max_disp, int window, int is_bf16, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || max_disp <= 0 || window < 0 ||
-      H > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, kRef>(own, other, tar_mask, max_cost, out, w,
-                                       center, grad, B, C, H, W, max_disp,
-                                       window, s);
-  return launch<float, kRef>(own, other, tar_mask, max_cost, out, w, center,
-                             grad, B, C, H, W, max_disp, window, s);
 }
 
 }  // namespace
@@ -346,20 +220,13 @@ extern "C" int spamat_dref(const void* ref, const void* tar,
                            void* grad_ref, int B, int C, int H, int W,
                            int max_disp, int window, int is_bf16,
                            void* stream) {
-  return dispatch<true>(ref, tar, tar_mask, max_cost, out, w, center,
-                        grad_ref, B, C, H, W, max_disp, window, is_bf16,
-                        stream);
-}
-
-// The same arguments with the feature maps swapped (tar first) and
-// grad_tar as the output; grad_tar is zero at keys with tar_mask == 0.
-extern "C" int spamat_dtar(const void* tar, const void* ref,
-                           const void* tar_mask, const void* max_cost,
-                           const void* out, const void* w, const void* center,
-                           void* grad_tar, int B, int C, int H, int W,
-                           int max_disp, int window, int is_bf16,
-                           void* stream) {
-  return dispatch<false>(tar, ref, tar_mask, max_cost, out, w, center,
-                         grad_tar, B, C, H, W, max_disp, window, is_bf16,
-                         stream);
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || max_disp <= 0 || window < 0 ||
+      H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(ref, tar, tar_mask, max_cost, out, w, center,
+                                 grad_ref, B, C, H, W, max_disp, window, s);
+  return launch<float>(ref, tar, tar_mask, max_cost, out, w, center, grad_ref,
+                       B, C, H, W, max_disp, window, s);
 }

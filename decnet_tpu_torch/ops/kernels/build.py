@@ -1,11 +1,16 @@
-"""Build the port's CUDA kernels with plain `nvcc` and load them with ctypes.
+"""Build the port's CUDA kernels with plain `nvcc`, and the host library
+of the demo's detail masks with `g++`, and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes `extern "C"` launchers that return a
 cudaError_t.  It is compiled at first use, for sm_90a, into a shared
 library under `build/decnet_tpu_torch/` at the root of the checkout (listed
-in .gitignore).  The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library never loads.
-Nothing here touches PyTorch's C++ headers: a build takes seconds.
+in .gitignore).  The library named `decnet_native` is
+`native/decnet_native.cc`, compiled by g++ for this host's baseline
+instruction set (the prebuilt `native/libdecnet_native.so` was compiled
+with -march=native elsewhere and is not loaded).  A library's file name
+carries a hash of its sources and flags, so an edited source is rebuilt
+and a stale library never loads.  Nothing here touches PyTorch's C++
+headers: a build takes seconds.
 """
 from __future__ import annotations
 
@@ -20,9 +25,13 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "decnet_tpu_torch"
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / "build" / "decnet_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_LIB = "decnet_native"
+HOST_SRC = ROOT / "native" / "decnet_native.cc"
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
 
 # Loaded libraries by kernel name: loading is idempotent and a process
 # never unloads a shared library, so one handle per name is kept.
@@ -48,17 +57,41 @@ def nvcc_path() -> str:
                        "machine with the card (CUDA toolkit required)")
 
 
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the host mask library is built "
+                           "from native/decnet_native.cc at first use")
+    return found
+
+
+def _source(name: str) -> Path:
+    return HOST_SRC if name == HOST_LIB else CSRC_DIR / f"{name}.cu"
+
+
+def _command(name: str, out: Path) -> List[str]:
+    if name == HOST_LIB:
+        return [gxx_path(), *HOST_FLAGS, "-o", str(out), str(HOST_SRC)]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(_source(name))]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its name hashes the source, the headers of
+    csrc/ it may include, and the flags."""
+    h = hashlib.sha1(_source(name).read_bytes())
+    if name == HOST_LIB:
+        h.update(" ".join(HOST_FLAGS).encode())
+    else:
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> List[BuildResult]:
-    """Compile every named kernel that is not built yet, one `nvcc` process
-    per source, all started together.  Raises with the compiler's output if
-    any build fails."""
+    """Compile every named library that is not built yet, one compiler
+    process per source, all started together.  Raises with the compiler's
+    output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results, procs = [], []
     for name in names:
@@ -67,8 +100,7 @@ def build(names: Sequence[str]) -> List[BuildResult]:
             results.append(BuildResult(name, out, 0.0, ""))
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+        cmd = _command(name, tmp)
         procs.append((name, out, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
@@ -77,27 +109,29 @@ def build(names: Sequence[str]) -> List[BuildResult]:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"--- nvcc {name} (rc {proc.returncode}) ---\n"
+            failures.append(f"--- {name} (rc {proc.returncode}) ---\n"
                             f"{log}")
             continue
         os.replace(tmp, out)
         results.append(BuildResult(name, out, seconds, log))
     if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        raise RuntimeError("build failed:\n" + "\n".join(failures))
     return results
 
 
-def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it first if needed.
+def load(name: str, signatures: Dict[str, list],
+         restype=ctypes.c_int) -> ctypes.CDLL:
+    """The loaded library `name`, building it first if needed.
 
-    `signatures` maps each launcher to its ctypes argument types; every
-    launcher returns a C int (a cudaError_t)."""
+    `signatures` maps each function to its ctypes argument types; every
+    function returns `restype` (the kernels' launchers a C int, a
+    cudaError_t)."""
     lib = _LOADED.get(name)
     if lib is None:
         (res,) = build([name])
         lib = ctypes.CDLL(str(res.path))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib

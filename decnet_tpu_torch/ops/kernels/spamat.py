@@ -1,6 +1,7 @@
 """Sparse matching, forward moments and backward: the CUDA kernels
-`csrc/spamat_moments.cu` and `csrc/spamat_backward.cu` and their plain
-PyTorch versions.
+`csrc/spamat_moments.cu`, `csrc/spamat_backward.cu` (dRef) and
+`csrc/spamat_dtar.cu`, their launch plans, and their plain PyTorch
+versions.
 
 Port of decnet_tpu/ops/pallas/spamat.py::_moments_kernel (the TPU kernel)
 and of its XLA twin decnet_tpu/ops/matching.py::matching_moments (:67-112),
@@ -28,11 +29,17 @@ candidate pairs of the forward:
 Features are NCHW (B,C,H,W), bf16 or f32 (scores accumulate in f32); masks,
 center and the per-query maps are (B,H,W) f32; the moments are (B,H,W) f32
 and the gradients come back in the features' dtype.
+
+The launch geometry of the moments and dTar kernels lives here, where the
+CPU tests reach it: `moments_plan` and `dtar_plan` pick the columns a block
+owns, its threads and its shared memory, and `stage_copies` mirrors the
+kernels' cp.async staging (csrc/staging.cuh) granule by granule.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,15 +49,164 @@ from decnet_tpu_torch.ops.kernels import build
 EPS = 1e-6
 _NEG = -3.0e38  # the reference's stand-in for -inf
 
-_SIGNATURES = {"spamat_moments": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+# spamat_moments: 5 inputs, 4 outputs, B, C, H, W, max_disp, window,
+# is_bf16, then the plan's tile, span, threads, lanes, smem, and the stream
+_SIGNATURES = {"spamat_moments": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                + [ctypes.c_void_p]}
-# spamat_dref / spamat_dtar: 7 inputs, 1 output, B, C, H, W, max_disp,
-# window, is_bf16, stream
-_BWD_SIGNATURES = {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p]
-                   for name in ("spamat_dref", "spamat_dtar")}
-MAX_BWD_CHANNELS = 72   # the backward kernels keep C accumulators a thread,
-#                        one instance per model stage: C = 8, 24, 72
+# spamat_dref: 7 inputs, 1 output, B, C, H, W, max_disp, window, is_bf16,
+# stream
+_DREF_SIGNATURES = {"spamat_dref": [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
+# spamat_dtar: the same, then the plan's tile, span, threads, lanes, smem
+_DTAR_SIGNATURES = {"spamat_dtar": [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 12 + [ctypes.c_void_p]}
+MAX_DREF_CHANNELS = 72  # dRef keeps C accumulators a thread, one instance
+#                         per model stage: C = 8, 24, 72
+
+# Launch plans.  The card: 132 SMs, 227 KB of shared memory a block.
+SMS = 132
+TARGET_BLOCKS = 2 * SMS   # rows are split until the grid has this many
+MIN_TILE = 32             # ... but a block keeps at least this many columns
+SMEM_BUDGET = 100 * 1024  # a block's shared memory, so that two fit an SM
+SMEM_MAX = 227 * 1024
+MAX_THREADS = 256
+GRAN_BYTES = 16           # one cp.async copy
+MAP_GE = GRAN_BYTES // 4  # f32 map elements a granule holds
+MIN_THREADS = 128
+LANE_CHANNELS = 8         # channels a dTar lane holds: one chunk
+MAX_MOMENTS_CHANNELS = 72  # the moments kernel keeps a query's features
+#                            in registers: one instance for C <= 8, 24, 72
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A kernel's launch: `segs` blocks per (b, h) row, each owning `tile`
+    columns (queries for the moments, keys for dTar) and a window of
+    `span` columns of the other side, with `threads` threads in groups of
+    `lanes` per owned column and `smem` bytes of dynamic shared memory."""
+    tile: int
+    segs: int
+    span: int
+    threads: int
+    lanes: int
+    smem: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def row_stride(n: int, ge: int, pitch: int) -> int:
+    """Shared elements per staged row of n columns in granules of ge
+    elements, congruent to the rows' pitch modulo ge (staging.cuh)."""
+    return -(-(n + 3 * ge) // ge) * ge + pitch % ge
+
+
+def stage_lead(base0: int, a: int, ge: int) -> int:
+    """Shared offset of column a in every staged row (staging.cuh)."""
+    return ge + (base0 + a) % ge
+
+
+def stage_copies(base0: int, pitch: int, n_total: int, rows: int, a: int,
+                 e: int, ge: int, stride: int
+                 ) -> List[Tuple[int, int, int, int]]:
+    """The copies `staging::stage_rows` issues for columns [a, e) of `rows`
+    rows (row r at global element base0 + r * pitch): (row, shared
+    element, global element, elements), one cp.async granule when the
+    count is ge and the global element granule-aligned, else the elements
+    up to the row's end one by one."""
+    if e <= a:
+        return []
+    ng = (e - a + ge - 1) // ge + 1
+    lead = stage_lead(base0, a, ge)
+    out = []
+    for r in range(rows):
+        start = base0 + r * pitch + a
+        end = start + (e - a)
+        for g in range(ng):
+            x = (start // ge + g) * ge
+            if x < end:
+                out.append((r, r * stride + lead + x - start, x,
+                            ge if x + ge <= n_total else end - x))
+    return out
+
+
+def _moments_smem(C, H, W, tile, span, esize):
+    ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
+    return (_align16(esize * C * row_stride(tile, ge, H * W))
+            + _align16(esize * C * row_stride(span, ge, H * W))
+            + _align16(esize * cp * span)
+            + 2 * _align16(4 * row_stride(tile, MAP_GE, 0))
+            + _align16(4 * row_stride(span, MAP_GE, 0))
+            + _align16(4 * (span + 1)) + _align16(4 * span)
+            + _align16(4 * tile))
+
+
+def _dtar_smem(C, H, W, tile, span, esize):
+    ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
+    return (_align16(esize * C * row_stride(tile, ge, H * W))
+            + _align16(esize * C * row_stride(span, ge, H * W))
+            + _align16(esize * cp * span)
+            + _align16(4 * row_stride(tile, MAP_GE, 0))
+            + 4 * _align16(4 * row_stride(span, MAP_GE, 0))
+            + _align16(16 * span) + _align16(4 * (span + 1))
+            + _align16(4 * span) + _align16(4 * tile))
+
+
+def _plan(B, H, W, D, smem_fn, lanes):
+    rows = B * H
+    segs = max(1, min(-(-TARGET_BLOCKS // rows), W // MIN_TILE))
+    while True:
+        tile = -(-W // segs)
+        span = min(tile + D - 1, W)
+        smem = smem_fn(tile, span)
+        if smem <= SMEM_BUDGET or tile == 1:
+            break
+        segs += 1
+    segs = -(-W // tile)
+    if smem > SMEM_MAX:
+        raise ValueError(f"no plan fits in {SMEM_MAX} bytes of shared "
+                         f"memory (W={W}, D={D}): {smem} at tile {tile}")
+    threads = min(MAX_THREADS,
+                  max(MIN_THREADS, -(-tile * lanes // 32) * 32))
+    return Plan(tile, segs, span, threads, lanes, smem)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def candidate_lanes(D: int, cap: int = 32) -> int:
+    """Lanes that share one query's (or key's) band: a power of two near
+    D / 32, so that at ~20% density each walks a few candidates, at most
+    `cap`."""
+    return min(cap, _pow2_at_least(-(-D // 32)))
+
+
+def moments_plan(B: int, C: int, H: int, W: int, D: int,
+                 esize: int) -> Plan:
+    """The moments kernel's launch for (B,C,H,W) features of `esize`
+    bytes: whole rows unless B*H rows leave fewer than TARGET_BLOCKS
+    blocks or a row overflows SMEM_BUDGET; `candidate_lanes(D)` lanes per
+    query."""
+    return _plan(B, H, W, D, lambda t, s: _moments_smem(C, H, W, t, s, esize),
+                 candidate_lanes(D))
+
+
+def dtar_lanes(C: int, D: int) -> int:
+    """Lanes per key in dTar: a power of two of chunk lanes (each owns 8
+    channels) times the candidate lanes that fit in a warp."""
+    chunk = _pow2_at_least(-(-C // LANE_CHANNELS))
+    if chunk > 32:
+        raise ValueError(f"C={C} needs more than a warp per key")
+    return chunk * candidate_lanes(D, 32 // chunk)
+
+
+def dtar_plan(B: int, C: int, H: int, W: int, D: int, esize: int) -> Plan:
+    """The dTar kernel's launch, tiled as `moments_plan` over key columns,
+    with `dtar_lanes(C, D)` lanes per key."""
+    return _plan(B, H, W, D, lambda t, s: _dtar_smem(C, H, W, t, s, esize),
+                 dtar_lanes(C, D))
 
 Moments = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -113,6 +269,12 @@ def _check(ref, tar, maps, max_disp, window, max_channels=None):
         raise ValueError(f"bad max_disp {max_disp} / window {window}")
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """`t`, or a copy of it when its data does not start on 16 bytes: the
+    moments and dTar kernels stage rows with 16-byte copies."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
             tar_mask: torch.Tensor, max_disp: int,
             center: Optional[torch.Tensor] = None,
@@ -126,8 +288,11 @@ def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
         raise ValueError(f"unsupported device {ref.device}")
     window = int(window) if center is not None else 0
     _check(ref, tar, [ref_mask, tar_mask] + ([center] if window > 0 else []),
-           max_disp, window)
+           max_disp, window, MAX_MOMENTS_CHANNELS)
     B, C, H, W = ref.shape
+    ref, tar, ref_mask, tar_mask, center = (
+        _aligned(t) for t in (ref, tar, ref_mask, tar_mask, center))
+    plan = moments_plan(B, C, H, W, int(max_disp), ref.element_size())
     lib = build.load("spamat_moments", _SIGNATURES)
     out = torch.empty((4, B, H, W), dtype=torch.float32, device=ref.device)
     with torch.cuda.device(ref.device):
@@ -136,7 +301,8 @@ def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
             tar_mask.data_ptr(), center.data_ptr() if window > 0 else None,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), B, C, H, W, int(max_disp), window,
-            int(ref.dtype == torch.bfloat16),
+            int(ref.dtype == torch.bfloat16), plan.tile, plan.span,
+            plan.threads, plan.lanes, plan.smem,
             torch.cuda.current_stream(ref.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spamat_moments launch failed: cudaError_t {rc} "
@@ -202,10 +368,18 @@ def _launch_bwd(name, feats, maps, center, window, max_disp, out_like):
         raise ValueError(f"{name} is a CUDA kernel; got a tensor on "
                          f"{out_like.device}")
     window = int(window) if center is not None else 0
+    is_dref = name == "spamat_dref"
     _check(feats[0], feats[1], list(maps) + ([center] if window > 0 else []),
-           max_disp, window, MAX_BWD_CHANNELS)
+           max_disp, window, MAX_DREF_CHANNELS if is_dref else None)
     B, C, H, W = feats[0].shape
-    lib = build.load("spamat_backward", _BWD_SIGNATURES)
+    if is_dref:
+        lib, plan = build.load("spamat_backward", _DREF_SIGNATURES), ()
+    else:
+        feats, maps = [_aligned(t) for t in feats], [_aligned(t) for t in maps]
+        center = _aligned(center)
+        p = dtar_plan(B, C, H, W, int(max_disp), out_like.element_size())
+        lib = build.load("spamat_dtar", _DTAR_SIGNATURES)
+        plan = (p.tile, p.span, p.threads, p.lanes, p.smem)
     grad = torch.empty_like(out_like)
     with torch.cuda.device(out_like.device):
         rc = getattr(lib, name)(
@@ -213,7 +387,7 @@ def _launch_bwd(name, feats, maps, center, window, max_disp, out_like):
             *(t.data_ptr() for t in maps),
             center.data_ptr() if window > 0 else None, grad.data_ptr(),
             B, C, H, W, int(max_disp), window,
-            int(out_like.dtype == torch.bfloat16),
+            int(out_like.dtype == torch.bfloat16), *plan,
             torch.cuda.current_stream(out_like.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc} "

@@ -1,5 +1,5 @@
 """Weight bridge both ways: the flax variables of decnet_tpu's DecNet <->
-the port's state_dict, and checkpoint loading.
+the port's state_dict, checkpoint loading, and warm starts.
 
 Input is either a `params.npz` snapshot as decnet_tpu/train/checkpoint.py
 writes it (flattened pytree, keys like
@@ -7,6 +7,8 @@ writes it (flattened pytree, keys like
 in-memory variables of a JAX model converted to numpy.  The bridge is
 strict: every array must map onto a port parameter or buffer and every
 port parameter or buffer must be filled, with matching shapes.
+`warm_start` is the lenient twin for `--init_from`: it copies what
+matches by key and shape and leaves the rest fresh.
 
 Layouts:
   Conv          HWIO   -> OIHW
@@ -92,17 +94,21 @@ def _convert(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     return key, np.ascontiguousarray(arr)
 
 
+def _flat_arrays(variables: Union[str, Mapping]
+                 ) -> Dict[Tuple[str, ...], np.ndarray]:
+    """{flax path: array} of a `params.npz` path or of nested variables."""
+    if isinstance(variables, (str, os.PathLike)):
+        with np.load(variables) as z:
+            return {_parse_key(k): z[k] for k in z.files}
+    return flatten_variables(variables)
+
+
 def state_dict_from_flax(variables: Union[str, Mapping]
                          ) -> Dict[str, torch.Tensor]:
     """The port's state_dict (f32 CPU tensors) from a `params.npz` path or
     from nested flax variables."""
-    if isinstance(variables, (str, os.PathLike)):
-        with np.load(variables) as z:
-            flat = {_parse_key(k): z[k] for k in z.files}
-    else:
-        flat = flatten_variables(variables)
     sd = {}
-    for path, arr in flat.items():
+    for path, arr in _flat_arrays(variables).items():
         key, arr = _convert(path, arr)
         if key in sd:
             raise KeyError(f"two flax variables map onto {key}")
@@ -167,6 +173,44 @@ def load_flax_variables(model: torch.nn.Module,
                              f"port shape {tuple(want[k].shape)}")
     model.load_state_dict(sd, strict=True)
     return len(sd)
+
+
+def warm_start(model: torch.nn.Module, variables: Union[str, Mapping]
+               ) -> Dict[str, Tuple[int, int]]:
+    """Fill what matches, keep the rest fresh: the port of decnet_tpu's
+    `CheckpointManager.restore_partial` for a `params.npz` (or nested flax
+    variables).
+
+    Every port parameter or buffer whose flax key is in `variables` and
+    whose shape after the layout conversion matches is copied in place;
+    every other tensor keeps its value.  Arrays the port has no tensor for
+    (or of another shape) are ignored and counted.  Prints JAX's summary
+    lines and returns {"params" | "batch_stats": (restored, fresh)}."""
+    want = model.state_dict()
+    found, unused = {}, 0
+    for path, arr in _flat_arrays(variables).items():
+        try:
+            key, arr = _convert(path, arr)
+        except (KeyError, ValueError):
+            unused += 1
+            continue
+        if key in want and tuple(want[key].shape) == arr.shape:
+            found[key] = torch.from_numpy(np.array(arr, np.float32))
+        else:
+            unused += 1
+    with torch.no_grad():
+        for key, t in found.items():
+            want[key].copy_(t)      # state_dict tensors share the storage
+    counts = {}
+    for label in ("params", "batch_stats"):
+        keys = [k for k in want if k.endswith(("running_mean", "running_var"))
+                == (label == "batch_stats")]
+        hits = sum(k in found for k in keys)
+        counts[label] = (hits, len(keys) - hits)
+        print(f"warm-start {label}: {hits} restored, {len(keys) - hits} "
+              f"fresh-initialised")
+    print(f"warm-start: {unused} checkpoint arrays unused")
+    return counts
 
 
 def load_checkpoint(ckpt_dir: str, device="cuda") -> DecNet:
