@@ -241,7 +241,10 @@ def kernel_parity(torch, spamat, kwarp, gen, flush_buf, stages=None, B=1):
                         ref, disp, D), 5, flush_buf),
                     bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
                     library_ms=time_cuda(torch, lambda: F.grid_sample(
-                        ref, grid, align_corners=False), 20, flush_buf))
+                        ref, grid, align_corners=False), 20, flush_buf),
+                    # a copy of the features: the same bytes read and
+                    # written once, by the timing above
+                    copy_ms=time_cuda(torch, ref.clone, 20, flush_buf))
             rec["warp"].append(r)
             print(f"  warp C={C} {H}x{W} D={D} {dname}: "
                   + " ".join(f"{k}={v:.4g}" if isinstance(v, float)
@@ -561,13 +564,17 @@ def main():
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     flush_buf = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    # what the timing reads for a kernel that does next to nothing
+    one = torch.zeros(1, device=DEV)
+    floor_ms = time_cuda(torch, lambda: one.add_(1), 20, flush_buf)
     with torch.no_grad():
         parity = kernel_parity(torch, spamat, kwarp, gen, flush_buf)
         extra = kernel_parity_extra(torch, spamat, kwarp, gen)
         parity_train = kernel_parity(torch, spamat, kwarp, gen, flush_buf,
                                      TRAIN_STAGES, TRAIN_B)
     phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
-          dtypes=2, **{k: f"{v:.3g}" for k, v in extra.items()})
+          dtypes=2, timing_floor_ms=f"{floor_ms:.4g}",
+          **{k: f"{v:.3g}" for k, v in extra.items()})
 
     # -- 3b. backward kernels against their plain version
     t0 = time.perf_counter()
@@ -717,7 +724,8 @@ def main():
     torch.cuda.synchronize()
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "kind": kind, "parity": parity,
+            json.dump({"card": card, "kind": kind,
+                       "timing_floor_ms": floor_ms, "parity": parity,
                        "parity_extra": extra, "parity_train": parity_train,
                        "backward": bwd, "train": train,
                        "latency_ms": lat, "host_masks_ms": mask_ms,

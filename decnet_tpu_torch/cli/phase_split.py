@@ -1,10 +1,11 @@
-"""Where a sparse-matching kernel's time goes inside its blocks, on the card.
+"""Where a kernel's time goes inside its blocks, on the card.
 
 Builds the kernels with -DDECNET_STAMPS (csrc/stamps.cuh: clock64 stamps
 per block at the phase boundaries each source names in its
 `phases(<launcher>): ...` comment), launches each once at the fine-stage
-shapes of a 540x972 request (moments) and of a training batch (moments,
-dRef, dTar) on 20%-dense random masks in bf16, and prints per kernel and
+shapes of a 540x972 request (moments, warp) and of a training batch
+(moments, warp, dRef, dTar) on 20%-dense random masks and disparities in
+[0, max_disp) in bf16, and prints per kernel and
 shape the mean cycles per block of each phase, the blocks that reached the
 end, and one JSON line with all of it.  The SM clock is measured with a
 spin of known length, so cycles convert to microseconds.  The stamps cost
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from decnet_tpu_torch.ops.kernels import build, spamat
+from decnet_tpu_torch.ops.kernels import warp as kwarp
 
 SERVE_STAGES = [(1, 72, 60, 108, 24), (1, 24, 180, 324, 72),
                 (1, 8, 540, 972, 216)]          # (B, C, H, W, D)
@@ -67,7 +69,9 @@ def inputs(gen, B, C, H, W, D, dev):
     mc = torch.where(refm, m, 0.0)
     g = torch.randn(B, H, W, generator=gen, device=dev)
     w = spamat.query_weight(g, rm, ss).contiguous()
+    disp = torch.rand(B, H, W, generator=gen, device=dev) * D
     return {"spamat_moments": lambda: spamat.moments(ref, tar, rm, tm, D),
+            "warp_disparity": lambda: kwarp.warp(ref, disp, D),
             "spamat_dref": lambda: spamat.spamat_dref(ref, tar, tm, mc, out,
                                                       w, D),
             "spamat_dtar": lambda: spamat.spamat_dtar(ref, tar, tm, mc, out,
@@ -102,8 +106,10 @@ def main(argv=None):
           f"MHz (measured)", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    cases = [("serve", s, ("spamat_moments",)) for s in SERVE_STAGES]
-    cases += [("train", s, ("spamat_moments", "spamat_dref", "spamat_dtar"))
+    cases = [("serve", s, ("spamat_moments", "warp_disparity"))
+             for s in SERVE_STAGES]
+    cases += [("train", s, ("spamat_moments", "warp_disparity",
+                            "spamat_dref", "spamat_dtar"))
               for s in TRAIN_STAGES]
     records = []
     for path, (B, C, H, W, D), kernels in cases:

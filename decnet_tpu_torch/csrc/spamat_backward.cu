@@ -10,215 +10,320 @@
 // the wrapper computes it), and for every candidate pair of the forward --
 // key k = q - d, d in [0, D), k >= 0, tar_mask[k] != 0, and
 // |d - center[q]| <= window when window > 0 -- the score
-// s(q,k) = sum_c ref[c,q] * tar[c,k] in f32 and e = exp(s - max_cost[q]):
+// s(q,k) = sum_c ref[c,q] * tar[c,k] in f32 and
+// e = exp(min(s - max_cost[q], 0)):
 //   grad_ref[q] = sum_k e * (d - out[q]) * w[q] * tar[k],
 // zero at inactive queries (w == 0).
 //
-// NaN safety.  A pair is gated by the query weight and the key mask BEFORE
-// the exp, never by multiplying afterwards: a masked-out key may outscore
-// max_cost (it took no part in the forward max), and a query with
-// ref_mask == 0 has max_cost == 0, so exp could overflow to inf and inf * 0
-// is NaN.  A query with no candidate has w = 1e6 * g but visits no pair.
-// The scores are recomputed with the forward kernel's arithmetic (fmaf over
-// c ascending from 0), so a visited pair has s <= max_cost.
+// NaN safety.  A pair is gated by the query weight, the key mask and the
+// window BEFORE the exp, never by multiplying afterwards: a masked-out key
+// may outscore max_cost (it took no part in the forward max), and a query
+// with ref_mask == 0 has max_cost == 0, so exp could overflow to inf and
+// inf * 0 is NaN.  A query with no candidate has w = 1e6 * g but visits no
+// pair.  Within the gate, the chunk lanes sum a score in another order than
+// the forward's fmaf chain, so it may exceed max_cost by a few ulps: the
+// exponent is clamped at 0 (e <= 1), as in dTar.
 //
 // Bound on this card: bytes.  At the training stage-3 shape (B = 8, C = 8,
 // 162x486, D = 216, bf16 features) the kernel reads both feature maps and
 // four f32 maps and writes one bf16 gradient once: ~40 MB, ~12 us at
 // 3.35 TB/s; the 4C + ~8 flops of the candidate pairs that ~20%-dense masks
-// leave are a few times fewer.  This simple version sits well above that
-// bound (PERF.md has its times): its staging loop waits for each load
-// before the next, and a thread walks its pairs one by one, with an exp
-// and 2C FMAs each.
+// leave are a few times fewer.
 //
-// Design.  The TPU kernel builds a dense (rows x 128 x band) score tile on
-// the MXU; here the work is sparse, so the kernel follows the forward
-// kernel's second version: one block per (b, row, 128 queries) stages the
-// key window (128 + D - 1) x C in shared memory (f32) and the key mask as
-// one bit per slot, queues its active queries (w != 0) so that whole warps
-// hold active queries, and each thread walks the set key bits of its
-// query's band, d ascending, with the query's features and its C gradient
-// sums in registers.  C is a template bound, one per model stage (8, 24 or
-// 72: the register arrays need a compile-time size); the runtime C <= that
-// bound, and a wider C is refused.
+// Design: dTar's (spamat_dtar.cu) with the sides swapped, tiled as the
+// moments kernel is.
+//   * A block owns `tile` query columns of one (b, h) row, [q0, q1), and
+//     the key window [max(0, q0 - D + 1), q1): a whole row when the rows
+//     fill the card (ops/kernels/spamat.py::dref_plan).
+//   * 16-byte cp.async copies (staging.cuh) of the key mask and the query
+//     maps (w, max_cost, out, and center when windowed) in one group, of
+//     both feature rows in a second.  While the features arrive, the set
+//     keys are compacted in slot order -- a query's candidates are then one
+//     run of that list -- and the active queries (w != 0) are queued.  The
+//     set keys' features are then copied slot-major, 8 channels per vector.
+//   * A group of `lanes` lanes owns one active query: NL chunk lanes (each
+//     holds 8 of the C channels of the query and of its gradient sums in
+//     registers; NL = 1, 4, 16 for the instances C <= 8, 24, 72) times
+//     candidate lanes (a power of two near D / 32 that fits the warp), each
+//     taking every few-th candidate of the run.  The chunk lanes of a
+//     candidate add their partial scores by shuffles; at the end the
+//     candidate lanes add their gradient sums.  No lane holds more than 16
+//     floats of a query, at any C.
+//   * The gradient tile takes the place of the staged query rows (a
+//     query's group reads its 8-channel slices before it writes them back)
+//     and leaves in coalesced rows, with zeros at the inactive queries.  (A
+//     write-back by 16-byte vectors, after zeroing the inactive queries in
+//     the tile, was slower; PERF.md has the times.)
+// phases(spamat_dref): issue maps queue features transpose walk stores
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "stamps.cuh"
+#include "staging.cuh"
+
 namespace {
 
-constexpr int kT = 128;  // queries (dRef) or keys (dTar) per block
+using staging::align16;
+using staging::kMapGE;
+using staging::row_stride;
+using staging::stage_lead;
+using staging::Vec8;
+
+constexpr int kMaxThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Queue the block's active threads in column order: returns this block's
-// number of active threads; queue[i] is the i-th active thread's index.
-__device__ __forceinline__ int queue_active(bool active, int* queue,
-                                            int* warp_count) {
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const unsigned act = __ballot_sync(0xffffffffu, active);
-  if (lane == 0) warp_count[wid] = __popc(act);
-  __syncthreads();
-  int base = 0, n = 0;
-  for (int i = 0; i < kT / 32; ++i) {
-    base += i < wid ? warp_count[i] : 0;
-    n += warp_count[i];
-  }
-  if (active) queue[base + __popc(act & ((1u << lane) - 1u))] = tid;
-  __syncthreads();
-  return n;
+// Lanes per query for the instance of NL chunk lanes: NL times a power of
+// two of candidate lanes near D / 32 (so each walks a few candidates), at
+// most a warp; ops/kernels/spamat.py::dref_lanes computes the same.
+inline int lanes_for(int nl, int D) {
+  int gc = 1;
+  while (gc * nl < 32 && gc * 32 < D) gc *= 2;
+  return gc * nl;
 }
 
+// Dynamic shared memory of one block, in the order the kernel carves it;
+// ops/kernels/spamat.py::dref_plan computes the same sum.
 template <typename T>
-__device__ __forceinline__ void zero_column(T* grad, size_t base,
-                                            size_t plane, int C) {
-  for (int c = 0; c < C; ++c) store(grad + base + (size_t)c * plane, 0.f);
+size_t smem_bytes(int C, long long hw, int tile, int span) {
+  constexpr int GE = staging::kGranBytes / (int)sizeof(T);
+  const int cp = (C + 7) / 8 * 8;
+  return align16(sizeof(T) * C * row_stride(tile, GE, hw))    // queries
+         + align16(sizeof(T) * C * row_stride(span, GE, hw))  // keys
+         + align16(sizeof(T) * cp * span)              // set keys, by slot
+         + align16(4 * row_stride(span, kMapGE, 0))           // tar_mask
+         + 4 * align16(4 * row_stride(tile, kMapGE, 0))   // the 4 query maps
+         + align16(4 * (span + 1))                        // key positions
+         + align16(4 * span)                              // set key slots
+         + align16(4 * tile);                             // query queue
 }
 
-template <typename T, int CT>
-__global__ void __launch_bounds__(kT)
+template <typename T, int NL>
+__global__ void __launch_bounds__(kMaxThreads)
 dref_kernel(const T* __restrict__ ref, const T* __restrict__ tar,
             const float* __restrict__ tar_mask,
             const float* __restrict__ max_cost,
             const float* __restrict__ out, const float* __restrict__ wq,
             const float* __restrict__ center, T* __restrict__ gref,
-            int C, int H, int W, int D, int window) {
-  extern __shared__ float smem[];
-  __shared__ int warp_count[kT / 32];
-  const int KW = kT + D - 1;
-  const int n_words = (KW + 31) / 32;
-  float* k_s = smem;                                          // [C][KW]
-  unsigned* key_bits = reinterpret_cast<unsigned*>(k_s + C * KW);
-  int* queue = reinterpret_cast<int*>(key_bits + n_words);    // [kT]
+            int C, int H, int W, int D, int window, int tile, int span,
+            int lanes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_count[2 * 32];
+  constexpr int GE = staging::kGranBytes / (int)sizeof(T);
+  const long long hw = (long long)H * W;
+  const int nch = (C + 7) / 8, cp = nch * 8;
+  const int qs = row_stride(tile, GE, hw), ks = row_stride(span, GE, hw);
+  const int ms = row_stride(tile, kMapGE, 0);
+  const int kms = row_stride(span, kMapGE, 0);
+  unsigned char* p = smem;
+  T* q_s = reinterpret_cast<T*>(p);           p += align16(sizeof(T) * C * qs);
+  T* k_s = reinterpret_cast<T*>(p);           p += align16(sizeof(T) * C * ks);
+  T* kc_s = reinterpret_cast<T*>(p);          // set keys, slot-major
+  p += align16(sizeof(T) * cp * span);
+  float* tm_s = reinterpret_cast<float*>(p);  p += align16(4 * kms);
+  float* w_s = reinterpret_cast<float*>(p);   p += align16(4 * ms);
+  float* mc_s = reinterpret_cast<float*>(p);  p += align16(4 * ms);
+  float* out_s = reinterpret_cast<float*>(p); p += align16(4 * ms);
+  float* cen_s = reinterpret_cast<float*>(p); p += align16(4 * ms);
+  int* key_pos = reinterpret_cast<int*>(p);   p += align16(4 * (span + 1));
+  int* key_slot = reinterpret_cast<int*>(p);  p += align16(4 * span);
+  int* queue = reinterpret_cast<int*>(p);
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int w0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int w = w0 + tid;
-  const bool in_row = w < W;
-  const size_t row = ((size_t)b * H + h) * W;                 // (B,H,W) maps
-  const size_t plane = (size_t)H * W;
-  const size_t feat_row = (size_t)b * C * plane + (size_t)h * W;
-  const bool active = in_row && wq[row + w] != 0.f;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * tile, q1 = min(q0 + tile, W);
+  const int kc0 = max(0, q0 - D + 1);            // column of key slot 0
+  const int nq = q1 - q0, nk = q1 - kc0;
+  const long long mrow = ((long long)b * H + h) * W;      // (B,H,W) maps
+  const long long frow = (long long)b * C * hw + (long long)h * W;
+  const long long n_maps = (long long)gridDim.z * hw;
+  DECNET_STAMP(0);
 
-  if (in_row && !active) zero_column(gref, feat_row + w, plane, C);
-  if (!__syncthreads_or(active)) return;
+  // Every copy in flight: the key mask and the query maps, then the
+  // features.
+  staging::stage_rows(tm_s, kms, tar_mask, mrow, 0, n_maps, 1, kc0, q1);
+  staging::stage_rows(w_s, ms, wq, mrow, 0, n_maps, 1, q0, q1);
+  staging::stage_rows(mc_s, ms, max_cost, mrow, 0, n_maps, 1, q0, q1);
+  staging::stage_rows(out_s, ms, out, mrow, 0, n_maps, 1, q0, q1);
+  if (window > 0)
+    staging::stage_rows(cen_s, ms, center, mrow, 0, n_maps, 1, q0, q1);
+  staging::cp_async_commit();
+  staging::stage_rows(q_s, qs, ref, frow, hw, n_maps * C, C, q0, q1);
+  staging::stage_rows(k_s, ks, tar, frow, hw, n_maps * C, C, kc0, q1);
+  staging::cp_async_commit();
+  DECNET_STAMP_SYNC(1);
+  staging::cp_async_wait<1>();
+  __syncthreads();
+  DECNET_STAMP(2);
 
-  // Stage the key window and its mask bits.
-  const int k0 = w0 - (D - 1);       // column of key slot 0
-  for (int j = tid; j < n_words * 32; j += kT) {              // warp-uniform
-    const int col = k0 + j;
-    const bool ok = j < KW && col >= 0 && col < W && tar_mask[row + col] != 0.f;
-    const unsigned bits = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) key_bits[j >> 5] = bits;
-  }
-  for (int c = 0; c < C; ++c) {
-    const T* src = tar + feat_row + (size_t)c * plane;
-    for (int j = tid; j < KW; j += kT) {
-      const int col = k0 + j;
-      k_s[c * KW + j] = (col >= 0 && col < W) ? to_f32(src[col]) : 0.f;
-    }
-  }
-  const int n_active = queue_active(active, queue, warp_count);
-  if (tid >= n_active) return;
+  // While the features arrive: the set keys compacted in slot order (a
+  // query's candidates are then one run of that list), the active queries
+  // queued in column order.
+  const int m_l = stage_lead<float>(mrow, q0);
+  const int tm_l = stage_lead<float>(mrow, kc0);
+  const staging::Counts n = staging::compact_slots(
+      key_slot, key_pos, nk, [&](int j) { return tm_s[tm_l + j] != 0.f; },
+      queue, nq, [&](int j) { return w_s[m_l + j] != 0.f; }, warp_count);
+  const int n_keys = n.a, n_active = n.b;
+  DECNET_STAMP(3);
+  staging::cp_async_wait<0>();
+  __syncthreads();
+  DECNET_STAMP(4);
+  // The set keys slot-major: a lane reads its 8 channels of a pair as one
+  // vector.
+  staging::gather_slot_major(kc_s, k_s, ks, stage_lead<T>(frow, kc0), C,
+                             key_slot, n_keys);
+  __syncthreads();
+  DECNET_STAMP(5);
 
-  const int qt = queue[tid];
-  const int qw = w0 + qt;
-  float q[CT], acc[CT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    q[c] = c < C ? to_f32(ref[feat_row + (size_t)c * plane + qw]) : 0.f;
-    acc[c] = 0.f;
-  }
-  const float mc = max_cost[row + qw], o = out[row + qw], wv = wq[row + qw];
-  const float cen = window > 0 ? center[row + qw] : 0.f;
+  // A group of `lanes` lanes per active query: NL chunk lanes (lane owns
+  // channels 8 ch .. 8 ch + 7) times `lanes / NL` candidate lanes, each of
+  // which takes every (lanes / NL)-th candidate of the query's run.  The
+  // chunk lanes of a candidate add their partial scores; at the end the
+  // candidate lanes add their gradient sums.  Every loop that holds a
+  // shuffle runs the same number of times in all lanes of a warp (the
+  // groups of a warp walk as many rounds as the longest run needs), so each
+  // shuffle is one converged, full-warp exchange.
+  T* qf = q_s + stage_lead<T>(frow, q0);       // (c, slot) at c * qs + slot
+  const int gc = lanes / NL;
+  const int lane = threadIdx.x & 31, sub = lane & (lanes - 1);
+  const int ch = sub & (NL - 1), ci = sub / NL;
+  const int n_groups = blockDim.x / lanes, group = threadIdx.x / lanes;
+  const bool has = ch < nch;                     // lane owns a chunk
   const float win = (float)window;
-  const int hi = qt + D - 1;                    // key slot of d = 0
-  const int lo = qt + D - min(D, qw + 1);       // slot of the largest d
-  for (int wi = hi >> 5; wi >= (lo >> 5); --wi) {
-    const int s0 = wi << 5;
-    unsigned bits = key_bits[wi];
-    if (hi - s0 < 31) bits &= (2u << (hi - s0)) - 1u;
-    if (lo > s0) bits &= ~((1u << (lo - s0)) - 1u);
-    while (bits) {                              // highest slot first: d up
-      const int bit = 31 - __clz(bits);
-      bits &= ~(1u << bit);
-      const int j = s0 + bit;
-      const float fd = (float)(hi - j);
-      if (window > 0 && fabsf(fd - cen) > win) continue;
+  for (int i0 = 0; i0 < n_active; i0 += n_groups) {
+    const bool act = i0 + group < n_active;
+    const int qt = act ? queue[i0 + group] : 0;  // query slot
+    const int qw = q0 + qt;
+    float qv[8], acc[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int c = ch * 8 + u;
+      qv[u] = act && has && c < C ? to_f32(qf[c * qs + qt]) : 0.f;
+      acc[u] = 0.f;
+    }
+    const int j = m_l + qt;
+    const float mc = mc_s[j], o = out_s[j], wv = w_s[j];
+    const float cen = window > 0 ? cen_s[j] : 0.f;
+    // candidates: the set keys of slots lo .. hi (d = hi - slot)
+    const int hi = qw - kc0;                     // key slot of d = 0
+    const int lo = max(qw - D + 1, 0) - kc0;     // slot of the largest d
+    const int t0 = act ? key_pos[lo] : 0;
+    const int t1 = act ? key_pos[hi + 1] : 0;
+    const int rounds =
+        __reduce_max_sync(0xffffffffu, (t1 - t0 + gc - 1) / gc);
+    for (int r = 0; r < rounds; ++r) {
+      const int t = t0 + ci + r * gc;
+      bool valid = t < t1;
+      const float fd = valid ? (float)(hi - key_slot[t]) : 0.f;
+      if (window > 0 && fabsf(fd - cen) > win) valid = false;
+      Vec8<T> k;
       float s = 0.f;
+      if (valid && has) {
+        k = *reinterpret_cast<const Vec8<T>*>(kc_s + (size_t)t * cp + ch * 8);
 #pragma unroll
-      for (int c = 0; c < CT; ++c)
-        if (c < C) s = fmaf(q[c], k_s[c * KW + j], s);
-      const float coef = expf(s - mc) * (fd - o) * wv;
+        for (int u = 0; u < 8; ++u) s = fmaf(qv[u], to_f32(k.v[u]), s);
+      }
 #pragma unroll
-      for (int c = 0; c < CT; ++c)
-        if (c < C) acc[c] = fmaf(coef, k_s[c * KW + j], acc[c]);
+      for (int off = NL >> 1; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (valid && has) {
+        const float coef = expf(fminf(s - mc, 0.f)) * (fd - o) * wv;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          acc[u] = fmaf(coef, to_f32(k.v[u]), acc[u]);
+      }
+    }
+    for (int off = NL; off < lanes; off <<= 1)
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+    if (act && ci == 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int c = ch * 8 + u;
+        if (has && c < C) from_f32(qf + c * qs + qt, acc[u]);
+      }
     }
   }
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-    if (c < C) store(gref + feat_row + (size_t)c * plane + qw, acc[c]);
+  __syncthreads();
+  DECNET_STAMP(6);
+  for (int j = threadIdx.x; j < nq; j += blockDim.x) {
+    const bool act = w_s[m_l + j] != 0.f;        // inactive queries: zero
+    for (int c = 0; c < C; ++c)
+      gref[frow + c * hw + q0 + j] = act ? qf[c * qs + j] : T(0.f);
+  }
+  DECNET_STAMP_SYNC(7);
 }
 
-template <typename T, int CT>
-int launch_ct(const void* own, const void* other, const void* tar_mask,
+template <typename T, int NL>
+int launch_nl(const void* ref, const void* tar, const void* tar_mask,
               const void* max_cost, const void* out, const void* w,
               const void* center, void* grad, int B, int C, int H, int W,
-              int D, int window, cudaStream_t stream) {
-  const size_t span = kT + D - 1;
-  const size_t smem = sizeof(float) * C * span
-                      + sizeof(unsigned) * ((span + 31) / 32)
-                      + sizeof(int) * kT;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = dref_kernel<T, CT>;
+              int D, int window, int tile, int span, int threads, int lanes,
+              int smem, cudaStream_t stream) {
+  if (lanes != lanes_for(NL, D)) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        dref_kernel<T, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((W + kT - 1) / kT, H, B);
-  kernel<<<grid, kT, smem, stream>>>(
-      static_cast<const T*>(own), static_cast<const T*>(other),
+  dim3 grid((W + tile - 1) / tile, H, B);
+  dref_kernel<T, NL><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(ref), static_cast<const T*>(tar),
       static_cast<const float*>(tar_mask), static_cast<const float*>(max_cost),
       static_cast<const float*>(out), static_cast<const float*>(w),
       static_cast<const float*>(center), static_cast<T*>(grad), C, H, W, D,
-      window);
+      window, tile, span, lanes);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* own, const void* other, const void* tar_mask,
+int launch(const void* ref, const void* tar, const void* tar_mask,
            const void* max_cost, const void* out, const void* w,
            const void* center, void* grad, int B, int C, int H, int W, int D,
-           int window, cudaStream_t s) {
-#define DECNET_BWD_CT(CT)                                                   \
+           int window, int tile, int span, int threads, int lanes, int smem,
+           cudaStream_t stream) {
+  // The plan's numbers, checked against what this kernel needs.
+  if (tile < 1 || span != min(tile + D - 1, W) || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      (size_t)smem != smem_bytes<T>(C, (long long)H * W, tile, span) ||
+      smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  // one instance per model stage: C <= 8, 24, 72 (1, 4, 16 chunk lanes)
+#define DECNET_DREF_NL(CT, NL)                                              \
   if (C <= CT)                                                              \
-    return launch_ct<T, CT>(own, other, tar_mask, max_cost, out, w, center, \
-                            grad, B, C, H, W, D, window, s);
-  DECNET_BWD_CT(8)
-  DECNET_BWD_CT(24)
-  DECNET_BWD_CT(72)
-#undef DECNET_BWD_CT
+    return launch_nl<T, NL>(ref, tar, tar_mask, max_cost, out, w, center,   \
+                            grad, B, C, H, W, D, window, tile, span,        \
+                            threads, lanes, smem, stream);
+  DECNET_DREF_NL(8, 1)
+  DECNET_DREF_NL(24, 4)
+  DECNET_DREF_NL(72, 16)
+#undef DECNET_DREF_NL
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // ref/tar and grad_ref (B,C,H,W) contiguous, f32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1); tar_mask, max_cost, out, w (B,H,W) f32; center (B,H,W) f32,
-// read only when window > 0.  Returns a cudaError_t.
+// (is_bf16 = 1), C <= 72; tar_mask, max_cost, out, w (B,H,W) f32; center
+// (B,H,W) f32, read only when window > 0.  tile, span, threads, lanes and
+// smem are dref_plan's.  grad_ref is zero at queries with w == 0.  Returns
+// a cudaError_t.
 extern "C" int spamat_dref(const void* ref, const void* tar,
                            const void* tar_mask, const void* max_cost,
                            const void* out, const void* w, const void* center,
                            void* grad_ref, int B, int C, int H, int W,
-                           int max_disp, int window, int is_bf16,
+                           int max_disp, int window, int is_bf16, int tile,
+                           int span, int threads, int lanes, int smem,
                            void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || max_disp <= 0 || window < 0 ||
       H > 65535 || B > 65535)
@@ -226,7 +331,9 @@ extern "C" int spamat_dref(const void* ref, const void* tar,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(ref, tar, tar_mask, max_cost, out, w, center,
-                                 grad_ref, B, C, H, W, max_disp, window, s);
+                                 grad_ref, B, C, H, W, max_disp, window, tile,
+                                 span, threads, lanes, smem, s);
   return launch<float>(ref, tar, tar_mask, max_cost, out, w, center, grad_ref,
-                       B, C, H, W, max_disp, window, s);
+                       B, C, H, W, max_disp, window, tile, span, threads,
+                       lanes, smem, s);
 }

@@ -43,10 +43,10 @@
 //     loads do not collide in the banks.
 //   * Each score is an fmaf chain over c ascending from 0 on exactly
 //     converted values (zero channels pad C to a multiple of 8 and add
-//     nothing), the arithmetic the dRef kernel repeats: it relies on
-//     s <= max_cost, and the merged max is exact.  The sums are taken in
+//     nothing), and the merged max is exact.  The sums are taken in
 //     another order than the plain version's loop over d, which moves
-//     them by a few ulps.
+//     them by a few ulps.  (dRef and dTar sum their scores in chunk
+//     lanes, in another order, and clamp their exponents at 0.)
 //   * The query's registers need a compile-time chunk count: one instance
 //     for C <= 8, 24 and 72 (the model's stages); a wider C is refused.
 // Tensor cores are not used: with ~20% x 20% masks a dense score tile does
@@ -232,7 +232,7 @@ moments_kernel(const T* __restrict__ ref, const T* __restrict__ tar,
       }
     }
     // Merge the lanes' (max, sums): every lane ends with the same values,
-    // the max exact (the scores dRef recomputes stay <= it).
+    // the max exact.
     for (int off = lanes >> 1; off > 0; off >>= 1) {
       const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
       const float se2 = __shfl_xor_sync(0xffffffffu, se, off);

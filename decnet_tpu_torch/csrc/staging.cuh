@@ -1,7 +1,7 @@
 // Staging of feature and map rows into shared memory with cp.async, shared
-// by the moments and dTar kernels.  The layout math is mirrored in Python
-// (ops/kernels/spamat.py: row_stride, stage_lead, stage_copies), where the
-// CPU tests check it.
+// by the moments, dRef, dTar and warp kernels.  The layout math is mirrored
+// in Python (ops/kernels/staging.py: row_stride, stage_lead, stage_copies),
+// where the CPU tests check it.
 //
 // A block copies columns [a, e) of `rows` rows of a tensor, row r starting
 // at global element base0 + r * pitch (the C channel planes of one image

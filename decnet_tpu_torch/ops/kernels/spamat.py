@@ -30,21 +30,26 @@ Features are NCHW (B,C,H,W), bf16 or f32 (scores accumulate in f32); masks,
 center and the per-query maps are (B,H,W) f32; the moments are (B,H,W) f32
 and the gradients come back in the features' dtype.
 
-The launch geometry of the moments and dTar kernels lives here, where the
-CPU tests reach it: `moments_plan` and `dtar_plan` pick the columns a block
-owns, its threads and its shared memory, and `stage_copies` mirrors the
-kernels' cp.async staging (csrc/staging.cuh) granule by granule.
+The launch geometry of the three kernels lives here, where the CPU tests
+reach it: `moments_plan`, `dref_plan` and `dtar_plan` pick the columns a
+block owns, its threads and its shared memory; `ops/kernels/staging.py`
+mirrors their cp.async staging (csrc/staging.cuh) granule by granule.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from decnet_tpu_torch.ops.kernels import build
+from decnet_tpu_torch.ops.kernels.staging import (GRAN_BYTES, MAP_GE,
+                                                  MAX_THREADS, MIN_THREADS,
+                                                  SMEM_BUDGET, SMEM_MAX,
+                                                  TARGET_BLOCKS, align16,
+                                                  row_stride)
 
 EPS = 1e-6
 _NEG = -3.0e38  # the reference's stand-in for -inf
@@ -53,37 +58,28 @@ _NEG = -3.0e38  # the reference's stand-in for -inf
 # is_bf16, then the plan's tile, span, threads, lanes, smem, and the stream
 _SIGNATURES = {"spamat_moments": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                + [ctypes.c_void_p]}
-# spamat_dref: 7 inputs, 1 output, B, C, H, W, max_disp, window, is_bf16,
+# spamat_dref and spamat_dtar: 7 inputs, 1 output, B, C, H, W, max_disp,
+# window, is_bf16, then the plan's tile, span, threads, lanes, smem, and the
 # stream
-_DREF_SIGNATURES = {"spamat_dref": [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 7 + [ctypes.c_void_p]}
-# spamat_dtar: the same, then the plan's tile, span, threads, lanes, smem
-_DTAR_SIGNATURES = {"spamat_dtar": [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 12 + [ctypes.c_void_p]}
-MAX_DREF_CHANNELS = 72  # dRef keeps C accumulators a thread, one instance
-#                         per model stage: C = 8, 24, 72
+_BWD_SIGNATURES = {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p]
+                   for name in ("spamat_dref", "spamat_dtar")}
+MAX_DREF_CHANNELS = 72  # dRef's chunk lanes are a compile-time count, one
+#                         instance per model stage: C <= 8, 24, 72
 
-# Launch plans.  The card: 132 SMs, 227 KB of shared memory a block.
-SMS = 132
-TARGET_BLOCKS = 2 * SMS   # rows are split until the grid has this many
-MIN_TILE = 32             # ... but a block keeps at least this many columns
-SMEM_BUDGET = 100 * 1024  # a block's shared memory, so that two fit an SM
-SMEM_MAX = 227 * 1024
-MAX_THREADS = 256
-GRAN_BYTES = 16           # one cp.async copy
-MAP_GE = GRAN_BYTES // 4  # f32 map elements a granule holds
-MIN_THREADS = 128
-LANE_CHANNELS = 8         # channels a dTar lane holds: one chunk
+LANE_CHANNELS = 8         # channels a lane holds in dRef and dTar: one chunk
 MAX_MOMENTS_CHANNELS = 72  # the moments kernel keeps a query's features
 #                            in registers: one instance for C <= 8, 24, 72
+MIN_TILE = 32             # a block keeps at least this many columns
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A kernel's launch: `segs` blocks per (b, h) row, each owning `tile`
-    columns (queries for the moments, keys for dTar) and a window of
-    `span` columns of the other side, with `threads` threads in groups of
-    `lanes` per owned column and `smem` bytes of dynamic shared memory."""
+    columns (queries for the moments and dRef, keys for dTar) and a window
+    of `span` columns of the other side, with `threads` threads in groups
+    of `lanes` per owned column and `smem` bytes of dynamic shared
+    memory."""
     tile: int
     segs: int
     span: int
@@ -92,65 +88,37 @@ class Plan:
     smem: int
 
 
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
-def row_stride(n: int, ge: int, pitch: int) -> int:
-    """Shared elements per staged row of n columns in granules of ge
-    elements, congruent to the rows' pitch modulo ge (staging.cuh)."""
-    return -(-(n + 3 * ge) // ge) * ge + pitch % ge
-
-
-def stage_lead(base0: int, a: int, ge: int) -> int:
-    """Shared offset of column a in every staged row (staging.cuh)."""
-    return ge + (base0 + a) % ge
-
-
-def stage_copies(base0: int, pitch: int, n_total: int, rows: int, a: int,
-                 e: int, ge: int, stride: int
-                 ) -> List[Tuple[int, int, int, int]]:
-    """The copies `staging::stage_rows` issues for columns [a, e) of `rows`
-    rows (row r at global element base0 + r * pitch): (row, shared
-    element, global element, elements), one cp.async granule when the
-    count is ge and the global element granule-aligned, else the elements
-    up to the row's end one by one."""
-    if e <= a:
-        return []
-    ng = (e - a + ge - 1) // ge + 1
-    lead = stage_lead(base0, a, ge)
-    out = []
-    for r in range(rows):
-        start = base0 + r * pitch + a
-        end = start + (e - a)
-        for g in range(ng):
-            x = (start // ge + g) * ge
-            if x < end:
-                out.append((r, r * stride + lead + x - start, x,
-                            ge if x + ge <= n_total else end - x))
-    return out
-
-
 def _moments_smem(C, H, W, tile, span, esize):
     ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
-    return (_align16(esize * C * row_stride(tile, ge, H * W))
-            + _align16(esize * C * row_stride(span, ge, H * W))
-            + _align16(esize * cp * span)
-            + 2 * _align16(4 * row_stride(tile, MAP_GE, 0))
-            + _align16(4 * row_stride(span, MAP_GE, 0))
-            + _align16(4 * (span + 1)) + _align16(4 * span)
-            + _align16(4 * tile))
+    return (align16(esize * C * row_stride(tile, ge, H * W))
+            + align16(esize * C * row_stride(span, ge, H * W))
+            + align16(esize * cp * span)
+            + 2 * align16(4 * row_stride(tile, MAP_GE, 0))
+            + align16(4 * row_stride(span, MAP_GE, 0))
+            + align16(4 * (span + 1)) + align16(4 * span)
+            + align16(4 * tile))
 
 
 def _dtar_smem(C, H, W, tile, span, esize):
     ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
-    return (_align16(esize * C * row_stride(tile, ge, H * W))
-            + _align16(esize * C * row_stride(span, ge, H * W))
-            + _align16(esize * cp * span)
-            + _align16(4 * row_stride(tile, MAP_GE, 0))
-            + 4 * _align16(4 * row_stride(span, MAP_GE, 0))
-            + _align16(16 * span) + _align16(4 * (span + 1))
-            + _align16(4 * span) + _align16(4 * tile))
+    return (align16(esize * C * row_stride(tile, ge, H * W))
+            + align16(esize * C * row_stride(span, ge, H * W))
+            + align16(esize * cp * span)
+            + align16(4 * row_stride(tile, MAP_GE, 0))
+            + 4 * align16(4 * row_stride(span, MAP_GE, 0))
+            + align16(16 * span) + align16(4 * (span + 1))
+            + align16(4 * span) + align16(4 * tile))
+
+
+def _dref_smem(C, H, W, tile, span, esize):
+    ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
+    return (align16(esize * C * row_stride(tile, ge, H * W))
+            + align16(esize * C * row_stride(span, ge, H * W))
+            + align16(esize * cp * span)
+            + align16(4 * row_stride(span, MAP_GE, 0))
+            + 4 * align16(4 * row_stride(tile, MAP_GE, 0))
+            + align16(4 * (span + 1)) + align16(4 * span)
+            + align16(4 * tile))
 
 
 def _plan(B, H, W, D, smem_fn, lanes):
@@ -207,6 +175,26 @@ def dtar_plan(B: int, C: int, H: int, W: int, D: int, esize: int) -> Plan:
     with `dtar_lanes(C, D)` lanes per key."""
     return _plan(B, H, W, D, lambda t, s: _dtar_smem(C, H, W, t, s, esize),
                  dtar_lanes(C, D))
+
+
+def dref_lanes(C: int, D: int) -> int:
+    """Lanes per query in dRef: the chunk lanes of C's instance (C <= 8,
+    24, 72: 1, 4, 16 lanes of 8 channels) times the candidate lanes that
+    fit in a warp."""
+    if C > MAX_DREF_CHANNELS:
+        raise ValueError(f"dRef takes C <= {MAX_DREF_CHANNELS}, got {C}")
+    bound = next(ct for ct in (8, 24, MAX_DREF_CHANNELS) if C <= ct)
+    chunk = _pow2_at_least(-(-bound // LANE_CHANNELS))
+    return chunk * candidate_lanes(D, 32 // chunk)
+
+
+def dref_plan(B: int, C: int, H: int, W: int, D: int, esize: int) -> Plan:
+    """The dRef kernel's launch, tiled as `moments_plan` over query
+    columns (the key window [q0 - D + 1, q1) staged beside them), with
+    `dref_lanes(C, D)` lanes per query."""
+    return _plan(B, H, W, D, lambda t, s: _dref_smem(C, H, W, t, s, esize),
+                 dref_lanes(C, D))
+
 
 Moments = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -271,7 +259,7 @@ def _check(ref, tar, maps, max_disp, window, max_channels=None):
 
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """`t`, or a copy of it when its data does not start on 16 bytes: the
-    moments and dTar kernels stage rows with 16-byte copies."""
+    kernels stage rows with 16-byte copies."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -372,14 +360,12 @@ def _launch_bwd(name, feats, maps, center, window, max_disp, out_like):
     _check(feats[0], feats[1], list(maps) + ([center] if window > 0 else []),
            max_disp, window, MAX_DREF_CHANNELS if is_dref else None)
     B, C, H, W = feats[0].shape
-    if is_dref:
-        lib, plan = build.load("spamat_backward", _DREF_SIGNATURES), ()
-    else:
-        feats, maps = [_aligned(t) for t in feats], [_aligned(t) for t in maps]
-        center = _aligned(center)
-        p = dtar_plan(B, C, H, W, int(max_disp), out_like.element_size())
-        lib = build.load("spamat_dtar", _DTAR_SIGNATURES)
-        plan = (p.tile, p.span, p.threads, p.lanes, p.smem)
+    feats, maps = [_aligned(t) for t in feats], [_aligned(t) for t in maps]
+    center = _aligned(center)
+    p = (dref_plan if is_dref else dtar_plan)(B, C, H, W, int(max_disp),
+                                              out_like.element_size())
+    lib = build.load("spamat_backward" if is_dref else "spamat_dtar",
+                     {name: _BWD_SIGNATURES[name]})
     grad = torch.empty_like(out_like)
     with torch.cuda.device(out_like.device):
         rc = getattr(lib, name)(
@@ -387,7 +373,8 @@ def _launch_bwd(name, feats, maps, center, window, max_disp, out_like):
             *(t.data_ptr() for t in maps),
             center.data_ptr() if window > 0 else None, grad.data_ptr(),
             B, C, H, W, int(max_disp), window,
-            int(out_like.dtype == torch.bfloat16), *plan,
+            int(out_like.dtype == torch.bfloat16), p.tile, p.span, p.threads,
+            p.lanes, p.smem,
             torch.cuda.current_stream(out_like.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc} "

@@ -10,7 +10,9 @@ semantics: x = (w - d) * W/(W-1) - 0.5, y = h * H/(H-1) - 0.5, zero
 padding).
 
 Features are NCHW (B,C,H,W), bf16 or f32; disp is (B,H,W) f32; the result
-has the features' dtype and is computed in f32.
+has the features' dtype and is computed in f32.  `warp_plan` is the
+kernel's launch geometry: the channels a block owns, its threads and its
+shared memory, checked on the CPU by tests/test_torch_plans.py.
 
 `warp_with_grad` makes the warp differentiable: its backward is the
 vector-Jacobian product of the unclipped reference warp with respect to
@@ -21,17 +23,63 @@ port.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from decnet_tpu_torch.ops.kernels import build
+from decnet_tpu_torch.ops.kernels.staging import (GRAN_BYTES, MAP_GE,
+                                                  MAX_THREADS, MIN_THREADS,
+                                                  SMEM_BUDGET, SMEM_MAX,
+                                                  TARGET_BLOCKS, align16,
+                                                  row_stride)
 from decnet_tpu_torch.ops.warp import warp_by_disparity
 
 NEG_MARGIN = 16  # how far negative disparities are honoured
 
-_SIGNATURES = {"warp_disparity": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+# feat, disp, out, B, C, H, W, max_disp, neg_margin, is_bf16, then the
+# plan's cg, threads, smem, and the stream
+_SIGNATURES = {"warp_disparity": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                + [ctypes.c_void_p]}
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpPlan:
+    """The warp's launch: a block per (b, h) output row and group of `cg`
+    channels (`groups` of them), `threads` threads, `smem` bytes of
+    dynamic shared memory (`_warp_smem`: the source rows y0 and y0 + 1 of
+    its channels and the disparity row)."""
+    cg: int
+    groups: int
+    threads: int
+    smem: int
+
+
+def _warp_smem(cg: int, H: int, W: int, esize: int) -> int:
+    """Shared bytes of a block: the source rows y0 and y0 + 1 of cg
+    channels (staged rows of a (B,C,H,W) tensor) and the disparity row."""
+    stride = row_stride(W, GRAN_BYTES // esize, H * W)
+    return (2 * align16(esize * cg * stride)
+            + align16(4 * row_stride(W, MAP_GE, 0)))
+
+
+def warp_plan(B: int, C: int, H: int, W: int, esize: int) -> WarpPlan:
+    """All C channels a block unless B*H rows leave fewer than
+    TARGET_BLOCKS blocks (then C is split into groups until they do, or
+    one channel a block) or the rows overflow SMEM_BUDGET."""
+    groups = max(1, min(C, -(-TARGET_BLOCKS // (B * H))))
+    while True:
+        cg = -(-C // groups)
+        smem = _warp_smem(cg, H, W, esize)
+        if smem <= SMEM_BUDGET or cg == 1:
+            break
+        groups += 1
+    if smem > SMEM_MAX:
+        raise ValueError(f"no warp plan fits in {SMEM_MAX} bytes of shared "
+                         f"memory (W={W}): {smem} for one channel")
+    threads = min(MAX_THREADS, max(MIN_THREADS, -(-W // 32) * 32))
+    return WarpPlan(cg, -(-C // cg), threads, smem)
 
 
 def _fma_position(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -104,12 +152,17 @@ def warp(feat: torch.Tensor, disp: torch.Tensor,
         raise ValueError(f"unsupported device {feat.device}")
     _check(feat, disp, max_disp)
     B, C, H, W = feat.shape
+    # the kernel's 16-byte copies
+    feat, disp = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (feat, disp))
+    plan = warp_plan(B, C, H, W, feat.element_size())
     lib = build.load("warp", _SIGNATURES)
     out = torch.empty_like(feat)
     with torch.cuda.device(feat.device):
         rc = lib.warp_disparity(
             feat.data_ptr(), disp.data_ptr(), out.data_ptr(), B, C, H, W,
             int(max_disp), NEG_MARGIN, int(feat.dtype == torch.bfloat16),
+            plan.cg, plan.threads, plan.smem,
             torch.cuda.current_stream(feat.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"warp launch failed: cudaError_t {rc} "
