@@ -48,6 +48,10 @@ STAGES = [(72, 60, 108, 24), (24, 180, 324, 72), (8, 540, 972, 216)]
 # ... and of a training batch: B = 8 crops of 162x486, max_disp 216
 TRAIN_B = 8
 TRAIN_STAGES = [(72, 18, 54, 24), (24, 54, 162, 72), (8, 162, 486, 216)]
+# (B, stage) of smaller training batches, whose B*H rows are too few to
+# fill the card, so that the backward kernels split each row into segments
+# (dref_plan / dtar_plan: 3 and 2 a row)
+SPLIT_ROW_STAGES = [(2, TRAIN_STAGES[1]), (1, TRAIN_STAGES[2])]
 TRAIN_STEPS = 5           # timed, after one warm-up step (rate 0)
 # the faithful run's (batch, crop h, crop w, max_disp, dtype): config.json
 # holds it
@@ -114,14 +118,16 @@ def fail(msg):
 
 def time_cuda(torch, fn, iters, flush_buf):
     """Mean device ms of `fn` over `iters` launches, each after an L2
-    flush.  A ~1 ms spin on the card before the start event lets the host
-    enqueue `fn` meanwhile, so the events time the device, not the Python
-    and launch overhead (which a plain version's many launches still pay)."""
+    flush (a write of `flush_buf`; none when it is None).  A ~1 ms spin on
+    the card before the start event lets the host enqueue `fn` meanwhile,
+    so the events time the device, not the Python and launch overhead
+    (which a plain version's many launches still pay)."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
-        flush_buf.zero_()
+        if flush_buf is not None:
+            flush_buf.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -267,18 +273,22 @@ def backward_residuals(torch, spamat, ref, tar, rm, tm, D, center=None,
 
 def backward_parity(torch, spamat, gen, flush_buf):
     """The dRef and dTar kernels against `spamat_backward_plain` at the
-    training stage shapes (B = 8), f32 and bf16, once windowed, and once
+    training stage shapes (B = 8), f32 and bf16, once windowed, once
     adversarial: the features of masked-out keys and of inactive queries
     scaled by ADVERSARIAL_SCALE, so that every pair the forward skipped
     outscores max_cost (0 at an inactive query) by far, and an ungated exp
-    overflows.  Times in bf16.  Returns per-kernel records."""
+    overflows; and at SPLIT_ROW_STAGES, f32 and bf16, where a block owns a
+    segment of a row and its window starts inside the row.  Times in bf16
+    at B = 8.  Returns per-kernel records."""
     rec = {"spamat_dref": [], "spamat_dtar": []}
-    cases = [(shape, dt, 0, False) for shape in TRAIN_STAGES
-             for dt in (torch.float32, torch.bfloat16)]
-    cases.append((TRAIN_STAGES[1], torch.float32, 6, False))
-    cases.append((TRAIN_STAGES[0], torch.bfloat16, 0, True))
-    for (C, H, W, D), dt, window, adversarial in cases:
-        B = TRAIN_B
+    dts = (torch.float32, torch.bfloat16)
+    cases = [(TRAIN_B, shape, dt, 0, False) for shape in TRAIN_STAGES
+             for dt in dts]
+    cases.append((TRAIN_B, TRAIN_STAGES[1], torch.float32, 6, False))
+    cases.append((TRAIN_B, TRAIN_STAGES[0], torch.bfloat16, 0, True))
+    cases += [(B, shape, dt, 0, False) for B, shape in SPLIT_ROW_STAGES
+              for dt in dts]
+    for B, (C, H, W, D), dt, window, adversarial in cases:
         rm, tm, feat32, tar32, disp = stage_inputs(torch, gen, B, C, H, W, D)
         if adversarial:
             feat32 = torch.where((rm == 0)[:, None], feat32 * ADVERSARIAL_SCALE,
@@ -299,8 +309,9 @@ def backward_parity(torch, spamat, gen, flush_buf):
         torch.cuda.synchronize()
         pairs = candidate_pairs(torch, rm, tm, D)
         for name, gk, gp in zip(rec, got, want):
-            case = (f"{name} C={C} H={H} W={W} D={D} {dname} window={window}"
-                    + (" adversarial" if adversarial else ""))
+            case = (f"{name} B={B} C={C} H={H} W={W} D={D} {dname} "
+                    f"window={window}" + (" adversarial" if adversarial
+                                          else ""))
             if not (torch.isfinite(gk.float()).all()
                     and torch.isfinite(gp.float()).all()):
                 fail(f"{case}: non-finite output")
@@ -313,7 +324,8 @@ def backward_parity(torch, spamat, gen, flush_buf):
             r = {"shape": [B, C, H, W, D], "dtype": dname, "window": window,
                  "adversarial": adversarial, "max_abs_err": err,
                  "rel_err": rel, "max_grad": scale}
-            if dt == torch.bfloat16 and not window and not adversarial:
+            if (dt == torch.bfloat16 and B == TRAIN_B and not window
+                    and not adversarial):
                 kernel = getattr(spamat, name)
                 # ref, tar, 4 f32 maps in; one gradient out; per candidate
                 # pair 2C flops for the score, 2C to accumulate, ~8 more
@@ -564,9 +576,11 @@ def main():
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     flush_buf = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=DEV)
-    # what the timing reads for a kernel that does next to nothing
+    # what the timing reads for a kernel that does next to nothing, after
+    # the flush as every kernel here is timed, and without it
     one = torch.zeros(1, device=DEV)
     floor_ms = time_cuda(torch, lambda: one.add_(1), 20, flush_buf)
+    floor_no_flush_ms = time_cuda(torch, lambda: one.add_(1), 20, None)
     with torch.no_grad():
         parity = kernel_parity(torch, spamat, kwarp, gen, flush_buf)
         extra = kernel_parity_extra(torch, spamat, kwarp, gen)
@@ -574,6 +588,7 @@ def main():
                                      TRAIN_STAGES, TRAIN_B)
     phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
           dtypes=2, timing_floor_ms=f"{floor_ms:.4g}",
+          timing_floor_no_flush_ms=f"{floor_no_flush_ms:.4g}",
           **{k: f"{v:.3g}" for k, v in extra.items()})
 
     # -- 3b. backward kernels against their plain version
@@ -581,7 +596,7 @@ def main():
     with torch.no_grad():
         bwd = backward_parity(torch, spamat, gen, flush_buf)
     phase("backward_parity", t0, shapes=len(TRAIN_STAGES), dtypes=2,
-          windowed=1, adversarial=1, **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
+          windowed=1, adversarial=1, split_rows=len(SPLIT_ROW_STAGES), **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
                          for k, v in bwd.items()})
 
     # -- 4. load
@@ -725,7 +740,9 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kind": kind,
-                       "timing_floor_ms": floor_ms, "parity": parity,
+                       "timing_floor_ms": floor_ms,
+                       "timing_floor_no_flush_ms": floor_no_flush_ms,
+                       "parity": parity,
                        "parity_extra": extra, "parity_train": parity_train,
                        "backward": bwd, "train": train,
                        "latency_ms": lat, "host_masks_ms": mask_ms,

@@ -5,11 +5,7 @@ the kernels' times per stage shape.
 
 The other checkout is usually the parent commit, unpacked with
 `git archive` into a directory that .gitignore lists (its checkpoint may
-be a symlink to this one's).  Its dRef kernel carries no phase stamps when
-it predates the lane-group design (one thread per query walking key-mask
-bits); they are then inserted into its copy of `csrc/spamat_backward.cu`
-before the runs, at the block's start, after its staging, after its queue
-of active queries, after the walk and after the stores.
+be a symlink to this one's).
 
 Usage:  python -m decnet_tpu_torch.cli.ab_kernels --other DIR --out DIR
 Needs one CUDA card.  Writes `<out>/<run>.json` and `<out>/<run>.log` for
@@ -27,38 +23,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 RUNS = (("other", "smoke"), ("this", "smoke"), ("this", "smoke"),
         ("other", "smoke"), ("other", "split"), ("this", "split"))
-
-# (old, new) edits that stamp a thread-per-query dRef source
-_STORE = ("#pragma unroll\n  for (int c = 0; c < CT; ++c)\n"
-          "    if (c < C) store(gref + feat_row + (size_t)c * plane + qw, "
-          "acc[c]);\n")
-_DREF_STAMPS = (
-    ("#include <stdint.h>\n", "#include <stdint.h>\n\n#include "
-     "\"stamps.cuh\"\n// phases(spamat_dref): staging queue walk stores\n"),
-    ("  if (in_row && !active) zero_column(",
-     "  DECNET_STAMP(0);\n  if (in_row && !active) zero_column("),
-    ("  const int n_active = queue_active(",
-     "#ifdef DECNET_STAMPS\n  __syncthreads();\n#endif\n  DECNET_STAMP(1);"
-     "\n  const int n_active = queue_active("),
-    ("  if (tid >= n_active) return;",
-     "  DECNET_STAMP(2);\n  if (tid >= n_active) return;"),
-    (_STORE + "}\n",
-     "  DECNET_STAMP_ALL(3);\n" + _STORE + "  DECNET_STAMP_ALL(4);\n}\n"),
-)
-
-
-def stamp_thread_per_query_dref(src: Path) -> bool:
-    """Insert the phase stamps into a dRef source that has none; False
-    when it has them already."""
-    text = src.read_text()
-    if "phases(spamat_dref)" in text:
-        return False
-    for old, new in _DREF_STAMPS:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{src}: {old!r} not found once")
-        text = text.replace(old, new)
-    src.write_text(text)
-    return True
+RUN_TIMEOUT = 600  # seconds a run may take
 
 
 def per_stage(recs):
@@ -78,7 +43,8 @@ def summary(d):
                                        if "ms" in r]
     for name, recs in d["backward"].items():
         out[f"{name} train"] = per_stage(recs)
-    out["timing_floor_ms"] = d.get("timing_floor_ms")
+    for key in ("timing_floor_ms", "timing_floor_no_flush_ms"):
+        out[key] = d.get(key)
     out["checks"] = {
         "serve_ms": d["latency_ms"], "step_ms": d["train"]["step_ms"],
         "plain_mean_abs_delta_px": d["plain_mean_abs_delta_px"],
@@ -95,15 +61,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--other", required=True, help="the other checkout")
     p.add_argument("--out", required=True)
-    p.add_argument("--timeout", type=int, default=600,
-                   help="seconds a run may take")
     args = p.parse_args(argv)
     other = Path(args.other).resolve()
     out = Path(args.out).resolve()
     out.mkdir(parents=True, exist_ok=True)
-    if stamp_thread_per_query_dref(
-            other / "decnet_tpu_torch" / "csrc" / "spamat_backward.cu"):
-        print(f"stamped the dRef kernel of {other}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -122,7 +83,7 @@ def main(argv=None):
             try:
                 rc = subprocess.run(cmd, cwd=tree[who], stdout=log,
                                     stderr=subprocess.STDOUT,
-                                    timeout=args.timeout,
+                                    timeout=RUN_TIMEOUT,
                                     env={**os.environ,
                                          "PYTHONPATH": str(tree[who])}
                                     ).returncode

@@ -49,7 +49,7 @@ from decnet_tpu_torch.ops.kernels.staging import (GRAN_BYTES, MAP_GE,
                                                   MAX_THREADS, MIN_THREADS,
                                                   SMEM_BUDGET, SMEM_MAX,
                                                   TARGET_BLOCKS, align16,
-                                                  row_stride)
+                                                  aligned, row_stride)
 
 EPS = 1e-6
 _NEG = -3.0e38  # the reference's stand-in for -inf
@@ -88,37 +88,19 @@ class Plan:
     smem: int
 
 
-def _moments_smem(C, H, W, tile, span, esize):
+def _smem(C, H, W, tile, span, esize, tile_maps, span_maps, key_vecs=0):
+    """Shared bytes of a block: the staged feature rows of its `tile`
+    owned columns and of its `span`-column window, the window's features
+    slot-major, `tile_maps` / `span_maps` staged f32 maps, `key_vecs`
+    16-byte values per window column, and the slot and queue lists."""
     ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
     return (align16(esize * C * row_stride(tile, ge, H * W))
             + align16(esize * C * row_stride(span, ge, H * W))
             + align16(esize * cp * span)
-            + 2 * align16(4 * row_stride(tile, MAP_GE, 0))
-            + align16(4 * row_stride(span, MAP_GE, 0))
-            + align16(4 * (span + 1)) + align16(4 * span)
-            + align16(4 * tile))
-
-
-def _dtar_smem(C, H, W, tile, span, esize):
-    ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
-    return (align16(esize * C * row_stride(tile, ge, H * W))
-            + align16(esize * C * row_stride(span, ge, H * W))
-            + align16(esize * cp * span)
-            + align16(4 * row_stride(tile, MAP_GE, 0))
-            + 4 * align16(4 * row_stride(span, MAP_GE, 0))
-            + align16(16 * span) + align16(4 * (span + 1))
+            + tile_maps * align16(4 * row_stride(tile, MAP_GE, 0))
+            + span_maps * align16(4 * row_stride(span, MAP_GE, 0))
+            + align16(16 * key_vecs * span) + align16(4 * (span + 1))
             + align16(4 * span) + align16(4 * tile))
-
-
-def _dref_smem(C, H, W, tile, span, esize):
-    ge, cp = GRAN_BYTES // esize, -(-C // 8) * 8
-    return (align16(esize * C * row_stride(tile, ge, H * W))
-            + align16(esize * C * row_stride(span, ge, H * W))
-            + align16(esize * cp * span)
-            + align16(4 * row_stride(span, MAP_GE, 0))
-            + 4 * align16(4 * row_stride(tile, MAP_GE, 0))
-            + align16(4 * (span + 1)) + align16(4 * span)
-            + align16(4 * tile))
 
 
 def _plan(B, H, W, D, smem_fn, lanes):
@@ -157,7 +139,8 @@ def moments_plan(B: int, C: int, H: int, W: int, D: int,
     bytes: whole rows unless B*H rows leave fewer than TARGET_BLOCKS
     blocks or a row overflows SMEM_BUDGET; `candidate_lanes(D)` lanes per
     query."""
-    return _plan(B, H, W, D, lambda t, s: _moments_smem(C, H, W, t, s, esize),
+    return _plan(B, H, W, D,
+                 lambda t, s: _smem(C, H, W, t, s, esize, 2, 1),
                  candidate_lanes(D))
 
 
@@ -173,7 +156,8 @@ def dtar_lanes(C: int, D: int) -> int:
 def dtar_plan(B: int, C: int, H: int, W: int, D: int, esize: int) -> Plan:
     """The dTar kernel's launch, tiled as `moments_plan` over key columns,
     with `dtar_lanes(C, D)` lanes per key."""
-    return _plan(B, H, W, D, lambda t, s: _dtar_smem(C, H, W, t, s, esize),
+    return _plan(B, H, W, D,
+                 lambda t, s: _smem(C, H, W, t, s, esize, 1, 4, 1),
                  dtar_lanes(C, D))
 
 
@@ -192,7 +176,8 @@ def dref_plan(B: int, C: int, H: int, W: int, D: int, esize: int) -> Plan:
     """The dRef kernel's launch, tiled as `moments_plan` over query
     columns (the key window [q0 - D + 1, q1) staged beside them), with
     `dref_lanes(C, D)` lanes per query."""
-    return _plan(B, H, W, D, lambda t, s: _dref_smem(C, H, W, t, s, esize),
+    return _plan(B, H, W, D,
+                 lambda t, s: _smem(C, H, W, t, s, esize, 4, 1),
                  dref_lanes(C, D))
 
 
@@ -257,12 +242,6 @@ def _check(ref, tar, maps, max_disp, window, max_channels=None):
         raise ValueError(f"bad max_disp {max_disp} / window {window}")
 
 
-def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """`t`, or a copy of it when its data does not start on 16 bytes: the
-    kernels stage rows with 16-byte copies."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-
-
 def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
             tar_mask: torch.Tensor, max_disp: int,
             center: Optional[torch.Tensor] = None,
@@ -279,7 +258,7 @@ def moments(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
            max_disp, window, MAX_MOMENTS_CHANNELS)
     B, C, H, W = ref.shape
     ref, tar, ref_mask, tar_mask, center = (
-        _aligned(t) for t in (ref, tar, ref_mask, tar_mask, center))
+        aligned(t) for t in (ref, tar, ref_mask, tar_mask, center))
     plan = moments_plan(B, C, H, W, int(max_disp), ref.element_size())
     lib = build.load("spamat_moments", _SIGNATURES)
     out = torch.empty((4, B, H, W), dtype=torch.float32, device=ref.device)
@@ -360,8 +339,8 @@ def _launch_bwd(name, feats, maps, center, window, max_disp, out_like):
     _check(feats[0], feats[1], list(maps) + ([center] if window > 0 else []),
            max_disp, window, MAX_DREF_CHANNELS if is_dref else None)
     B, C, H, W = feats[0].shape
-    feats, maps = [_aligned(t) for t in feats], [_aligned(t) for t in maps]
-    center = _aligned(center)
+    feats, maps = [aligned(t) for t in feats], [aligned(t) for t in maps]
+    center = aligned(center)
     p = (dref_plan if is_dref else dtar_plan)(B, C, H, W, int(max_disp),
                                               out_like.element_size())
     lib = build.load("spamat_backward" if is_dref else "spamat_dtar",

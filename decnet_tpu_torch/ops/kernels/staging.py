@@ -10,7 +10,10 @@ granule, since the kernels cannot run here.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import TYPE_CHECKING, List, Optional, Tuple
+
+if TYPE_CHECKING:
+    import torch
 
 # The card: 132 SMs, 227 KB of shared memory a block.
 SMS = 132
@@ -25,6 +28,12 @@ MAP_GE = GRAN_BYTES // 4  # f32 map elements a granule holds
 
 def align16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """`t`, or a copy of it when its data does not start on 16 bytes: the
+    kernels stage rows with 16-byte copies."""
+    return t if t is None or t.data_ptr() % GRAN_BYTES == 0 else t.clone()
 
 
 def row_stride(n: int, ge: int, pitch: int) -> int:

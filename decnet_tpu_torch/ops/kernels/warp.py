@@ -33,7 +33,7 @@ from decnet_tpu_torch.ops.kernels.staging import (GRAN_BYTES, MAP_GE,
                                                   MAX_THREADS, MIN_THREADS,
                                                   SMEM_BUDGET, SMEM_MAX,
                                                   TARGET_BLOCKS, align16,
-                                                  row_stride)
+                                                  aligned, row_stride)
 from decnet_tpu_torch.ops.warp import warp_by_disparity
 
 NEG_MARGIN = 16  # how far negative disparities are honoured
@@ -152,9 +152,7 @@ def warp(feat: torch.Tensor, disp: torch.Tensor,
         raise ValueError(f"unsupported device {feat.device}")
     _check(feat, disp, max_disp)
     B, C, H, W = feat.shape
-    # the kernel's 16-byte copies
-    feat, disp = (t if t.data_ptr() % 16 == 0 else t.clone()
-                  for t in (feat, disp))
+    feat, disp = aligned(feat), aligned(disp)
     plan = warp_plan(B, C, H, W, feat.element_size())
     lib = build.load("warp", _SIGNATURES)
     out = torch.empty_like(feat)

@@ -4,7 +4,8 @@ CPU: the kernels cannot run here, so the geometry they are given is checked
 in Python.
 
 For every fine-stage shape of a served 540x972 request and of a training
-batch, and for ragged widths (W = 1, W < D, W not a multiple of the tile),
+batch, for training batches too small to fill the card (rows split into
+segments), and for ragged widths (W = 1, W < D, W not a multiple of the tile),
 in bf16 and f32:
   * the tiling visits every (active query, candidate key) pair of the band
     exactly once: each owned column lies in one block, and every partner of
@@ -25,7 +26,9 @@ STAGES = [(1, 72, 60, 108, 24), (1, 24, 180, 324, 72), (1, 8, 540, 972, 216),
           (8, 72, 18, 54, 24), (8, 24, 54, 162, 72), (8, 8, 162, 486, 216)]
 RAGGED = [(1, 3, 3, 1, 4), (2, 5, 3, 7, 24), (1, 8, 1, 1000, 216),
           (3, 9, 5, 77, 16), (1, 130, 2, 300, 40)]
-SHAPES = STAGES + RAGGED
+# training stages 2 and 3 at B = 2 and 1: too few rows, so split rows
+SPLIT_ROWS = [(2, 24, 54, 162, 72), (1, 8, 162, 486, 216)]
+SHAPES = STAGES + SPLIT_ROWS + RAGGED
 PLANS = {"moments": spamat.moments_plan, "dtar": spamat.dtar_plan,
          "dref": spamat.dref_plan}
 # (B, C, H, W) of the warp: the stage shapes, and ragged sizes (H = 2, W
@@ -141,6 +144,9 @@ def test_plans_at_the_model_shapes():
                   (8, 8, 162, 486, 216)):     # training: whole rows
         dref = spamat.dref_plan(*stage, 2)
         assert (dref.segs, dref.tile, dref.threads) == (1, stage[3], 256)
+    for shape, segs in zip(SPLIT_ROWS, (3, 2)):  # chip_smoke.py's cases
+        for plan in (spamat.dref_plan, spamat.dtar_plan):
+            assert plan(*shape, 2).segs == plan(*shape, 4).segs == segs
     assert [spamat.dref_plan(*s, 2).lanes for s in (
         (8, 72, 18, 54, 24), (8, 24, 54, 162, 72),
         (8, 8, 162, 486, 216))] == [16, 16, 8]
