@@ -14,6 +14,14 @@ faithful model from that checkpoint for a few steps through
 `decnet_tpu_torch.cli.train` (batch 8 of 162x486 crops of the on-device
 stream, max_disp 216, bf16, batch-statistic BN), holding a kernel-path step
 against a plain-path step and against kernel paths with planted faults.
+It serves the s2d model with learned detail masks and windowed matching
+(runs/ckpt_detail_r5) through the same demo entry points, kernel path
+against plain path, and it evaluates ckpt_faithful (legacy stream) and
+ckpt_detail_r5 (default stream) by `decnet_tpu_torch.cli.report_eval` at
+the JAX reports' protocol (540x972, max_disp 216, 24 batches of 4, seed
+37, bf16), each held to its JAX accuracy anchor within a band fixed in
+advance.  The windowed moments are held against their plain version at
+that path's shapes too.
 One line is printed per phase as it ends; the line before the last is a
 JSON object describing every kernel, the last line is the device record.
 Any failed check ends the run with a non-zero exit.
@@ -36,6 +44,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "runs", "ckpt_faithful")
+# the s2d model with learned (quantile) detail masks and windowed matching
+CKPT_DETAIL = os.path.join(ROOT, "runs", "ckpt_detail_r5")
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and f32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -102,6 +112,27 @@ FAULTS = {
                                                     max_disp - 1, *a))),
 }
 REQUESTS = 3              # served after one warm-up request
+# the windowed moments at the s2d detail path's shapes (that request's fine
+# stages; windows max(2, round(12 / 9)), round(12 / 3), 12)
+WINDOWED_STAGES = [(C, H, W, D, win) for (C, H, W, D), win
+                   in zip(STAGES, (2, 4, 12))]
+# the accuracy anchors: scripts/report_eval.py's protocol on the TPU
+# (540x972, max_disp 216, 24 batches of 4, seed 37, the val stream), final
+# EPE (stage3_epe) and the sparse-ablated final EPE of the JAX reports.
+# The port's stream draws from torch.Generator, so its 96 images are
+# another sample of the same distribution: a checkpoint passes when
+# |EPE_port - EPE_JAX| <= 3 SE + 0.02 EPE_JAX, SE the standard error of
+# the port's 24 per-batch final EPEs (band fixed before any card run).
+EVAL = dict(h=540, w=972, max_disp=216, batch=4, batches=24, seed=37)
+ANCHORS = (
+    # checkpoint, stream variant, stage3_epe, ablate_sparse_final_epe,
+    # the JAX report it comes from
+    ("ckpt_faithful", "legacy", 3.0747, 3.2091,
+     "runs/report_faithful_r4_legacy.json"),
+    ("ckpt_detail_r5", "default", 2.4925, 2.5181,
+     "runs/report_detail_r5.json"),
+)
+BAND_SE, BAND_REL = 3.0, 0.02
 SPIN_CYCLES = 2_000_000   # ~1 ms of device time at H100 clocks
 
 
@@ -139,14 +170,23 @@ def time_cuda(torch, fn, iters, flush_buf):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def candidate_pairs(torch, rm, tm, D):
-    """(active query, candidate key) pairs of the band: the work the
-    moments kernel does on these masks."""
+def candidate_pairs(torch, rm, tm, D, center=None, window=0):
+    """(active query, candidate key) pairs of the band, cut to
+    |d - center| <= window when window > 0: the work the moments kernel
+    does on these masks."""
     W = tm.shape[-1]
     c = torch.nn.functional.pad((tm != 0).double().cumsum(-1), (1, 0))
     w = torch.arange(W, device=tm.device)
-    lo = torch.clamp(w - D + 1, min=0)
-    cnt = c[..., w + 1] - c[..., lo]
+    d_lo = torch.zeros_like(w)
+    d_hi = torch.clamp(w, max=D - 1)
+    if window > 0:
+        d_lo = torch.clamp(torch.ceil(center - window), min=0).long()
+        d_hi = torch.minimum(torch.floor(center + window).long(), d_hi)
+    # source columns x - d_hi .. x - d_lo, clamped where the range is empty
+    lo = torch.clamp(w - d_hi, 0, W - 1)
+    hi = torch.clamp(w - d_lo, 0, W - 1)
+    cnt = torch.where(d_hi >= d_lo, c.gather(-1, (hi + 1).expand_as(tm).long())
+                      - c.gather(-1, lo.expand_as(tm).long()), 0.0)
     return float((cnt * (rm != 0)).sum())
 
 
@@ -524,6 +564,173 @@ def kernel_parity_extra(torch, spamat, kwarp, gen):
     return errs
 
 
+def windowed_parity(torch, spamat, gen, flush_buf):
+    """The windowed moments against their plain version at the s2d detail
+    path's stage shapes (B = 1, one request), f32 and bf16, the centres a
+    smooth disparity in [0, D) as the dense prediction gives them; times in
+    bf16.  Returns the per-shape records."""
+    recs, B = [], 1
+    for C, H, W, D, win in WINDOWED_STAGES:
+        rm, tm, feat32, tar32, _ = stage_inputs(torch, gen, B, C, H, W, D)
+        coarse = torch.rand(B, 1, 4, 4, generator=gen, device=DEV) * D
+        center = torch.nn.functional.interpolate(
+            coarse, size=(H, W), mode="bilinear", align_corners=False)[:, 0]
+        center = center.contiguous()
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            ref, tar = feat32.to(dt), tar32.to(dt)
+            got = spamat.moments(ref, tar, rm, tm, D, center, win)
+            want = spamat.moments_plain(ref, tar, rm, tm, D, center, win)
+            torch.cuda.synchronize()
+            act = rm != 0
+            err = 0.0
+            for g, w in zip(got, want):
+                g, w = g[act], w[act]
+                if not torch.isfinite(g).all():
+                    fail(f"windowed moments C={C} {dname}: non-finite")
+                d = (g - w).abs()
+                err = max(err, float(d.max()))
+                if bool((d > MOMENTS_ATOL + MOMENTS_RTOL * w.abs()).any()):
+                    fail(f"windowed moments C={C} H={H} W={W} D={D} "
+                         f"window={win} {dname}: max abs err "
+                         f"{float(d.max()):.3e} past tolerance")
+            r = {"shape": [C, H, W, D], "window": win, "dtype": dname,
+                 "max_abs_err": err}
+            if dt == torch.bfloat16:
+                pairs = candidate_pairs(torch, rm, tm, D, center, win)
+                # ref, tar, 2 masks and the centre in; 4 maps out
+                nbytes = (2 * ref.numel() * ref.element_size()
+                          + 3 * rm.numel() * 4 + 4 * rm.numel() * 4)
+                bms, by = bound(nbytes, pairs * (2 * C + 8))
+                r.update(
+                    ms=time_cuda(torch, lambda: spamat.moments(
+                        ref, tar, rm, tm, D, center, win), 20, flush_buf),
+                    plain_ms=time_cuda(torch, lambda: spamat.moments_plain(
+                        ref, tar, rm, tm, D, center, win), 3, flush_buf),
+                    pairs=pairs, bytes=nbytes, bound_ms=bms, bound_by=by,
+                    library_ms=None)
+            recs.append(r)
+            print(f"  windowed moments C={C} {H}x{W} D={D} window={win} "
+                  f"{dname}: " + " ".join(
+                      f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                      for k, v in r.items()
+                      if k not in ("shape", "dtype", "window")), flush=True)
+    return recs
+
+
+def serve_s2d_phase(torch, spamat, kwarp, gen):
+    """ckpt_detail_r5 (s2d, learned quantile masks, windowed matching)
+    served as the demo serves it: `request_masks` (none: the heads make
+    them), then `predict`; the launches of the timed requests, and the
+    kernel path held against the plain path on the same requests."""
+    from decnet_tpu_torch.cli.demo import predict, request_masks
+    from decnet_tpu_torch.data.synthetic import synthetic_pair
+    from decnet_tpu_torch.weights import load_checkpoint
+    H, W, D = SERVE
+    n = REQUESTS
+    model = load_checkpoint(CKPT_DETAIL, device=DEV)
+    cfg = model.cfg
+    if not (cfg.s2d_fine and cfg.use_detail and cfg.match_window
+            and cfg.thold_mode == "quantile"):
+        fail(f"{CKPT_DETAIL} is not the s2d + window + quantile-detail model")
+    reqs = [synthetic_pair(H, W, gen, DEV) for _ in range(n + 1)]
+
+    def serve(left, right):
+        return predict(model, left, right, *request_masks(left, right, cfg),
+                       D)
+
+    serve(reqs[0][0], reqs[0][1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spamat.moments.launches = 0
+    kwarp.warp.launches = 0
+    preds, lat = [], []
+    for left, right, _, _ in reqs[1:]:
+        t = time.perf_counter()
+        preds.append(serve(left, right))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    launches = {"spamat_moments": spamat.moments.launches,
+                "warp": kwarp.warp.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for k, got in launches.items():
+        if got != 3 * n:
+            fail(f"serve_s2d: {k} launched {got} times in {n} requests, "
+                 f"expected {3 * n}")
+    for pred in preds:
+        if pred.shape != (1, H, W) or not torch.isfinite(pred).all():
+            fail(f"serve_s2d: prediction of shape {tuple(pred.shape)} not "
+                 f"finite")
+    model.use_kernels = False
+    deltas = [(serve(left, right) - pred).abs().flatten()
+              for pred, (left, right, _, _) in zip(preds, reqs[1:])]
+    model.use_kernels = True
+    if spamat.moments.launches != 3 * n or kwarp.warp.launches != 3 * n:
+        fail("serve_s2d: the plain path launched a kernel")
+    delta = torch.cat(deltas)
+    mean_delta = float(delta.mean())
+    if not mean_delta <= SERVE_MEAN_TOL:
+        fail(f"serve_s2d kernel vs plain path: mean |delta disp| "
+             f"{mean_delta:.4g} px > {SERVE_MEAN_TOL}")
+    epes = [float((p - gt).abs()[valid].mean())
+            for p, (_, _, gt, valid) in zip(preds, reqs[1:])]
+    return {"latency_ms": lat, "launches": launches, "peak_mem_mb": peak_mb,
+            "plain_mean_abs_delta_px": mean_delta,
+            "plain_p999_abs_delta_px": float(torch.quantile(
+                delta.float(), 0.999)),
+            "epe_px": epes}
+
+
+def eval_phase(torch, spamat, kwarp):
+    """Each ANCHORS checkpoint evaluated by `cli.report_eval.report` at the
+    JAX reports' protocol on its stream, held to its anchor's band; the
+    faithful model's sparse branch must lower the final EPE.  Returns the
+    reports with their verdicts and the launches of each run."""
+    from decnet_tpu_torch.cli import report_eval
+    out = {}
+    for name, variant, anchor, anchor_abl, source in ANCHORS:
+        spamat.moments.launches = 0
+        kwarp.warp.launches = 0
+        rep = report_eval.report(os.path.join(ROOT, "runs", name),
+                                 **EVAL, variant=variant,
+                                 device=DEV)
+        launches = {"spamat_moments": spamat.moments.launches,
+                    "warp": kwarp.warp.launches}
+        epe, se = rep["stage3_epe"], rep["final_epe_se"]
+        band = BAND_SE * se + BAND_REL * anchor
+        ok = abs(epe - anchor) <= band
+        rep.update(anchor_stage3_epe=anchor,
+                   anchor_ablate_sparse_final_epe=anchor_abl,
+                   anchor_source=source, band=band, in_band=ok,
+                   launches=launches)
+        print(f"  {name} ({variant}): " + " ".join(
+            f"{k}={rep[k]:.5g}" for k in (
+                "stage0_epe", "stage1_epe", "stage2_epe", "stage3_epe",
+                "stage3_d1", "ablate_sparse_final_epe",
+                "ablate_sparse_final_d1", "up0_baseline_epe",
+                "up0_baseline_d1", "final_dense_epe", "final_dense_d1",
+                "final_fusion_epe", "final_fusion_d1",
+                "decomposition_win_epe", "sparse_contribution_epe",
+                "final_epe_se", "seconds")), flush=True)
+        print(f"  {name}: final EPE {epe:.5g} against the JAX anchor "
+              f"{anchor} ({source}): |delta| {abs(epe - anchor):.4g}, band "
+              f"{band:.4g} = {BAND_SE} x SE {se:.4g} + {BAND_REL} x "
+              f"{anchor}: {'inside' if ok else 'OUTSIDE'}; launches "
+              f"{json.dumps(launches)}", flush=True)
+        want = 2 * 3 * rep["batches"]
+        if any(n != want for n in launches.values()):
+            fail(f"eval {name}: launches {launches}, expected {want} each")
+        if not ok:
+            fail(f"eval {name}: final EPE {epe:.5g} outside the band "
+                 f"{anchor} +- {band:.4g}")
+        if name == "ckpt_faithful" and not rep["sparse_contribution_epe"] > 0:
+            fail(f"eval {name}: the sparse branch does not lower the final "
+                 f"EPE (sparse_contribution_epe "
+                 f"{rep['sparse_contribution_epe']:.4g})")
+        out[name] = rep
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -537,8 +744,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     if not (os.path.isdir(os.path.join(ROOT, "decnet_tpu_torch"))
-            and os.path.isfile(os.path.join(CKPT, "params.npz"))):
-        fail(f"{ROOT} does not hold the port and its checkpoint")
+            and all(os.path.isfile(os.path.join(c, "params.npz"))
+                    for c in (CKPT, CKPT_DETAIL))):
+        fail(f"{ROOT} does not hold the port and its checkpoints")
     sys.path.insert(0, ROOT)
     from decnet_tpu_torch.cli.demo import host_masks, predict
     from decnet_tpu_torch.data.synthetic import synthetic_pair
@@ -586,7 +794,9 @@ def main():
         extra = kernel_parity_extra(torch, spamat, kwarp, gen)
         parity_train = kernel_parity(torch, spamat, kwarp, gen, flush_buf,
                                      TRAIN_STAGES, TRAIN_B)
+        windowed = windowed_parity(torch, spamat, gen, flush_buf)
     phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
+          windowed_shapes=len(WINDOWED_STAGES),
           dtypes=2, timing_floor_ms=f"{floor_ms:.4g}",
           timing_floor_no_flush_ms=f"{floor_no_flush_ms:.4g}",
           **{k: f"{v:.3g}" for k, v in extra.items()})
@@ -697,7 +907,30 @@ def main():
               f"{k}:{v['grad_cos']:.4g}"
               for k, v in train["planted_faults"].items()))
 
-    # -- 7. the kernels line: per kernel, the launches of both main paths'
+    # -- 7. the s2d model with learned masks and windowed matching, served
+    t0 = time.perf_counter()
+    s2d = serve_s2d_phase(torch, spamat, kwarp, gen)
+    torch.cuda.empty_cache()
+    phase("serve_s2d", t0, checkpoint="runs/ckpt_detail_r5",
+          requests=REQUESTS, size=f"{H}x{W}", max_disp=D,
+          latency_ms=",".join(f"{x:.3f}" for x in s2d["latency_ms"]),
+          peak_mem_mb=f"{s2d['peak_mem_mb']:.1f}",
+          launches=json.dumps(s2d["launches"]),
+          plain_mean_abs_delta_px=f"{s2d['plain_mean_abs_delta_px']:.5g}",
+          plain_p999_abs_delta_px=f"{s2d['plain_p999_abs_delta_px']:.5g}",
+          epe_px=",".join(f"{e:.4f}" for e in s2d["epe_px"]))
+
+    # -- 8. accuracy against the JAX anchors
+    t0 = time.perf_counter()
+    evals = eval_phase(torch, spamat, kwarp)
+    torch.cuda.empty_cache()
+    phase("eval", t0, **{f"{k}_stage3_epe": f"{r['stage3_epe']:.5g}"
+                         for k, r in evals.items()},
+          **{f"{k}_band": f"{r['anchor_stage3_epe']}+-{r['band']:.4g}"
+             for k, r in evals.items()},
+          faithful_sparse_contribution_epe=f"{evals['ckpt_faithful']['sparse_contribution_epe']:.4g}")
+
+    # -- 9. the kernels line: per kernel, the launches of both main paths'
     # runs; times summed over the three fine-stage shapes of its main path
     # (serving, one 540x972 request, for the forward kernels; a training
     # batch for the backward ones), bf16, with the forward kernels' times
@@ -736,6 +969,18 @@ def main():
             k["max_abs_err"] = max(k["max_abs_err"], max(
                 r["max_abs_err"] for r in parity_train[name]))
         kernels.append(k)
+    # the windowed mode of the moments kernel, at the s2d detail path's
+    # shapes: its launches on that path (one request each) and in the evals
+    by_path = {"serve_s2d": s2d["launches"]["spamat_moments"],
+               "eval_ckpt_detail_r5":
+                   evals["ckpt_detail_r5"]["launches"]["spamat_moments"]}
+    kernels.append({"name": "spamat_moments_windowed", "route": "cuda",
+                    "source": sources["spamat_moments"][0],
+                    "replaces": sources["spamat_moments"][1],
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "max_abs_err": max(r["max_abs_err"] for r in windowed),
+                    **summed(windowed)})
     torch.cuda.synchronize()
     if args.out:
         with open(args.out, "w") as f:
@@ -745,6 +990,8 @@ def main():
                        "parity": parity,
                        "parity_extra": extra, "parity_train": parity_train,
                        "backward": bwd, "train": train,
+                       "windowed": windowed, "serve_s2d": s2d,
+                       "eval": evals,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,

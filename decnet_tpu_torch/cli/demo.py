@@ -3,8 +3,10 @@
 For each scene directory under --root holding im0.png/im1.png (and an
 optional calib.txt with ndisp): pad to x27, compute the detail masks on the
 host as the JAX demo does (`data/masks.py::detail_masks_np`, the native
-library), normalise, run DecNet, crop back, and write `<scene>.png`
-(uint16, disparity * 256) into --save2where.
+library; a model with learned detail heads makes its own and skips this),
+normalise, run DecNet, crop back, and write `<scene>.png` (uint16,
+disparity * 256) into --save2where.  Any committed checkpoint serves:
+faithful, s2d, windowed, learned detail.
 
 Usage:
   python -m decnet_tpu_torch.cli.demo --root InputData/Sceneflow \
@@ -15,7 +17,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,18 +49,28 @@ def host_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig,
     return [m[:B] for m in levels], [m[B:] for m in levels]
 
 
+def request_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig,
+                  mask_thold: float = MASK_THOLD):
+    """The masks a request needs: `host_masks`, or (None, None) for a
+    model whose learned detail heads make them."""
+    if cfg.use_detail:
+        return None, None
+    return host_masks(left, right, cfg, mask_thold)
+
+
 @torch.no_grad()
 def predict(model: DecNet, left: torch.Tensor, right: torch.Tensor,
-            lmasks: Sequence[torch.Tensor], rmasks: Sequence[torch.Tensor],
+            lmasks: Optional[Sequence[torch.Tensor]],
+            rmasks: Optional[Sequence[torch.Tensor]],
             max_disp: int) -> torch.Tensor:
     """Disparity (B,H,W) f32 for a stereo pair (B,3,H,W) in [0,1] on the
-    model's device and its padded images' detail masks (`host_masks`):
+    model's device and its padded images' detail masks (`request_masks`):
     pad to x27, normalise, forward, crop."""
     h, w = left.shape[-2:]
     lp = dio.pad_to_multiple(left.float(), PAD_MULTIPLE)
     rp = dio.pad_to_multiple(right.float(), PAD_MULTIPLE)
     out = model(dio.normalize_image(lp), dio.normalize_image(rp),
-                list(lmasks), list(rmasks), max_disp=max_disp)
+                lmasks, rmasks, max_disp=max_disp)
     return out["preds"][-1][:, -h:, -w:]
 
 
@@ -90,7 +102,8 @@ def main(argv=None):
         left, right = load("im0.png"), load("im1.png")
         ndisp = (dio.read_calib_ndisp(os.path.join(sdir, "calib.txt"))
                  or args.max_disp or model.cfg.max_disp)
-        lmasks, rmasks = host_masks(left, right, model.cfg, args.mask_thold)
+        lmasks, rmasks = request_masks(left, right, model.cfg,
+                                       args.mask_thold)
         t0 = time.perf_counter()
         pred = predict(model, left, right, lmasks, rmasks, int(ndisp))
         pred = pred[0].cpu().numpy()     # waits for the device

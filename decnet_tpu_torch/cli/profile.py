@@ -1,8 +1,8 @@
 """Where a served request's or a training step's time goes on the card.
 
---mode serve (default): loads a checkpoint, serves one warm-up and then
-three seeded synthetic 540x972 requests through `host_masks` and
-`predict`.
+--mode serve (default): loads a checkpoint (any committed one), serves one
+warm-up and then three seeded synthetic 540x972 requests through
+`request_masks` and `predict`.
 --mode train: prepares the train CLI's run from the checkpoint and its
 config.json (batch 8 of 162x486 crops of the on-device stream), takes one
 warm-up step and then three steps.
@@ -25,7 +25,7 @@ import time
 import torch
 
 from decnet_tpu_torch.cli import train as train_cli
-from decnet_tpu_torch.cli.demo import host_masks, predict
+from decnet_tpu_torch.cli.demo import predict, request_masks
 from decnet_tpu_torch.data.synthetic import synthetic_pair
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.weights import load_checkpoint
@@ -58,7 +58,7 @@ def _serve_work(resume, dev):
     reqs = [synthetic_pair(H, W, gen, dev) for _ in range(REQUESTS + 1)]
 
     def serve(left, right):
-        masks = host_masks(left, right, model.cfg)
+        masks = request_masks(left, right, model.cfg)
         predict(model, left, right, *masks, D)
 
     def warm():

@@ -75,6 +75,14 @@ def build_config(args: argparse.Namespace) -> Config:
         raise NotImplementedError(
             f"only the on-device synthetic stream is ported (got --dataset "
             f"{args.dataset!r}, data.on_device={cfg.data.on_device})")
+    m = cfg.model
+    if m.use_detail or m.s2d_fine or m.match_window:
+        raise NotImplementedError(
+            "training with use_detail, s2d_fine or match_window is not "
+            "ported yet (ROADMAP.md section 1, item 1: the detail mask loss, "
+            "the alpha term and the s2d/window train step); got "
+            f"use_detail={m.use_detail}, s2d_fine={m.s2d_fine}, "
+            f"match_window={m.match_window}")
     if args.ckpt_dir:
         cfg.train.ckpt_dir = args.ckpt_dir
     if args.steps:
@@ -119,7 +127,7 @@ def prepare(argv=None) -> Run:
                   w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
                   scale=cfg.model.down_scale, levels=cfg.model.num_stage - 1,
                   thold=cfg.data.mask_thold, dtype=cfg.model.torch_dtype,
-                  device=dev)
+                  device=dev, variant=cfg.data.variant)
     stream = device_batch_stream(cfg.train.seed, **gen_kw)
     eval_batches = None
     if args.eval_split:

@@ -1,5 +1,5 @@
 """Configuration of the port: the `ModelConfig`, `LossConfig`,
-`TrainConfig` and `DataConfig` fields the faithful DecNet forward and its
+`TrainConfig` and `DataConfig` fields the DecNet forward and its
 training read (a copy of the schema in decnet_tpu/config.py, which the port
 does not import), a loader for a checkpoint's `config.json` sidecar, and
 `section.key=value` overrides.
@@ -16,16 +16,16 @@ from typing import Iterable, Optional, Tuple
 import torch
 
 # Keys of a sidecar's "model" section that only the JAX package reads: its
-# kernel dispatch, the adaptive-sampling knobs no forward reaches, and the
-# learned-detail binarisation (the port takes precomputed masks; see
-# `use_detail`).
+# kernel dispatch and execution modes, and the adaptive-sampling knobs no
+# forward reaches.
 _IGNORED_KEYS = frozenset((
     "arch", "matching_impl", "step", "samp_num",
-    "sample_spa_size_list", "thold", "thold_mode", "detail_density",
-    "s2d_stages", "conv3d_impl", "split_concat"))
+    "sample_spa_size_list", "conv3d_impl", "split_concat"))
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 GRAD_METHODS = ("detach", "undetach")
+THOLD_MODES = ("fixed", "quantile")
+VARIANTS = ("default", "stressor", "legacy")
 
 
 def _refuse(section: str, obj, unsupported: dict):
@@ -38,12 +38,14 @@ def _refuse(section: str, obj, unsupported: dict):
 
 @dataclasses.dataclass
 class ModelConfig:
-    """Architecture of the faithful (reference-form) DecNet.
+    """Architecture of DecNet: the faithful (reference-form) model, with
+    learned detail heads (`use_detail`), the space-to-depth twin of the
+    full-resolution stage (`s2d_fine` with `s2d_stages` 1) and the
+    prior-windowed matching (`match_window`).
 
-    Values the port does not implement yet (learned detail heads, the
-    space-to-depth twins, windowed matching, the bicubic skip of fine
-    stages, other costs or norms) are refused at construction rather than
-    ignored."""
+    Values the port does not implement yet (s2d_stages >= 2, the bicubic
+    skip of fine stages, other costs or norms) are refused at construction
+    rather than ignored."""
     max_disp: int = 216
     base_channels: int = 8
     num_stage: int = 4
@@ -53,10 +55,14 @@ class ModelConfig:
     # without gradient (the reference detaches cross-stage predictions)
     grad_method: str = "detach"
     skip_stage_id: int = 4          # stages >= this would upsample bicubically
-    use_detail: bool = False        # masks come from the Gaussian pyramid
+    use_detail: bool = False        # False: masks come from the caller
+    thold: float = 0.9              # detail > thold (fixed mode)
+    thold_mode: str = "fixed"       # fixed | quantile (shared by the pair)
+    detail_density: float = 0.25    # the kept fraction in quantile mode
     dtype: str = "bfloat16"         # compute dtype; BN and softmax stay f32
     norm: str = "bn"
     s2d_fine: bool = False
+    s2d_stages: int = 1             # fine stages in s2d form when s2d_fine
     match_temp: float = 1.0
     match_temp_learned: bool = False
     match_window: int = 0
@@ -70,14 +76,15 @@ class ModelConfig:
         if self.grad_method not in GRAD_METHODS:
             raise ValueError(f"grad_method must be one of {GRAD_METHODS}, "
                              f"got {self.grad_method!r}")
+        if self.thold_mode not in THOLD_MODES:
+            raise ValueError(f"thold_mode must be one of {THOLD_MODES}, "
+                             f"got {self.thold_mode!r}")
         _refuse("ModelConfig", self, {
             "num_stage": self.num_stage != 4,
             "skip_stage_id": self.skip_stage_id < self.num_stage,
             "cost_func": self.cost_func != "cor",
-            "use_detail": self.use_detail,
             "norm": self.norm != "bn",
-            "s2d_fine": self.s2d_fine,
-            "match_window": self.match_window != 0,
+            "s2d_stages": self.s2d_fine and self.s2d_stages != 1,
             "dtype": self.dtype not in DTYPES,
         })
 
@@ -155,7 +162,9 @@ class DataConfig:
     variant: str = "default"
 
     def __post_init__(self):
-        _refuse("DataConfig", self, {"variant": self.variant != "default"})
+        if self.variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got "
+                             f"{self.variant!r}")
 
 
 _SECTIONS = {"model": ModelConfig, "loss": LossConfig, "train": TrainConfig,

@@ -1,49 +1,112 @@
-"""DecNet, the faithful (reference-form) model, forward for serving and
-training — the port of decnet_tpu/models/decnet.py:125-376 for
-use_detail=False, s2d_fine=False.
+"""DecNet forward for serving and training — the port of
+decnet_tpu/models/decnet.py:47-376 for the faithful model, its learned
+detail heads (`use_detail`), the space-to-depth twin of the full-resolution
+stage (`s2d_fine`, s2d_stages 1) and the prior-windowed matching
+(`match_window`).
 
 Per forward pass:
   stage 0 (1/27): uniform warped `cor` cost volume -> 3D-conv regulariser
                   -> soft-argmin disparity;
-  stages 1..3:    dynamic upsampling of the coarser prediction (dense
-                  branch); sparse matching plus variance on the detail
-                  pixels given by the masks (sparse branch, the
-                  `spamat_moments` kernel, and in training the `spamat_dref`
-                  and `spamat_dtar` kernels); soft-attention fusion;
-                  residual refinement (the `warp` kernel).
-Under grad_method "detach" the coarser prediction enters the dynamic
-upsampling without gradient, and the variance never carries one (the
-reference computes it under no_grad).  Batch norm follows the module's
-train/eval mode.  Inputs are NCHW; the output dict has the JAX model's
-keys.
+  stages 1..3:    detail masks, from the caller or from the learned heads
+                  (binarised, `binarise_detail_pair`); dynamic upsampling
+                  of the coarser prediction (dense branch); sparse matching
+                  plus variance on the detail pixels (sparse branch, the
+                  `spamat_moments` kernel, windowed around the detached
+                  dense prediction with match_window, and in training the
+                  `spamat_dref` and `spamat_dtar` kernels); soft-attention
+                  fusion; residual refinement (the `warp` kernel).
+With s2d_fine the last stage runs its convolutions on s2d planes at 1/3
+resolution (`...S2D` heads); the matching and the warp see its features
+unpacked to full resolution (`depth_to_space`), which is the data the JAX
+package's rows-form kernels read.  Under grad_method "detach" the coarser
+prediction enters the dynamic upsampling without gradient, and the
+variance never carries one (the reference computes it under no_grad).
+Batch norm follows the module's train/eval mode.  Inputs are NCHW; the
+output dict has the JAX model's keys, s2d stages' maps as full planes.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from decnet_tpu_torch.config import ModelConfig
+from decnet_tpu_torch.models.repack import packed_geometry
 from decnet_tpu_torch.nn.feature import FeatureExtractor
-from decnet_tpu_torch.nn.heads import (CostRegNet, DynamicUpsampling,
-                                       Refinement, SoftAttention)
+from decnet_tpu_torch.nn.heads import (CostRegNet, DetailHead, DetailHeadS2D,
+                                       DynamicUpsampling, Refinement,
+                                       RefinementS2D, SoftAttention,
+                                       SoftAttentionS2D)
+from decnet_tpu_torch.nn.layers import (depth_to_space, plane_to_s2d,
+                                        s2d_to_plane)
 from decnet_tpu_torch.ops.cost_volume import build_cost_volume_uniform
 from decnet_tpu_torch.ops.kernels import warp as warp_kernel
 from decnet_tpu_torch.ops.matching import (candidate_availability,
+                                           candidate_availability_windowed,
                                            sparse_matching_with_var)
 from decnet_tpu_torch.ops.regression import (disparity_regression,
                                              uniform_disp_samples)
 
 OUTPUT_KEYS = ("preds", "dense", "sparse", "sparse_raw", "fusion",
-               "soft_mask", "var", "residual", "masks_used", "cand")
+               "soft_mask", "var", "residual", "left_details",
+               "right_details", "masks_used", "cand")
+
+
+def quantile_linear(flat: torch.Tensor, q: float) -> torch.Tensor:
+    """Per-row q-quantile of (B,N) f32 with linear interpolation, in the
+    f32 arithmetic of `jnp.quantile`: pos = q (N - 1), the sorted values at
+    floor(pos) and ceil(pos) weighted (1 - f, f), f = pos - floor(pos).  A
+    sort, so no size limit (torch.quantile refuses inputs of more than 2^24
+    elements)."""
+    srt = torch.sort(flat.float(), dim=1).values
+    n = flat.shape[1]
+    pos = (torch.tensor(q, dtype=torch.float32)
+           * torch.tensor(float(n - 1), dtype=torch.float32))
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    lo = int(low.clamp(0, n - 1))
+    hi = int(high.clamp(0, n - 1))
+    return srt[:, lo] * lw.to(flat.device) + srt[:, hi] * hw.to(flat.device)
+
+
+def binarise_detail(detail: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Learned detail probabilities (B, ...) -> binary f32 mask, without
+    gradient: detail > thold ("fixed"), or detail above each image's
+    (1 - detail_density)-quantile over all its values ("quantile").  The
+    cut is strict, so a tied map keeps nothing."""
+    d = detail.detach().float()
+    if cfg.thold_mode == "quantile":
+        th = quantile_linear(d.reshape(d.shape[0], -1),
+                             1.0 - cfg.detail_density)
+        return (d > th.view((-1,) + (1,) * (d.dim() - 1))).float()
+    return (d > cfg.thold).float()
+
+
+def binarise_detail_pair(l_detail: torch.Tensor, r_detail: torch.Tensor,
+                         cfg: ModelConfig
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both views' masks; in quantile mode one threshold per pair, the
+    quantile of the two views' values pooled."""
+    if cfg.thold_mode != "quantile":
+        return binarise_detail(l_detail, cfg), binarise_detail(r_detail, cfg)
+    B = l_detail.shape[0]
+    flat = torch.cat([l_detail.detach().reshape(B, -1),
+                      r_detail.detach().reshape(B, -1)], dim=1)
+    th = quantile_linear(flat, 1.0 - cfg.detail_density)
+
+    def cut(d):
+        t = th.view((-1,) + (1,) * (d.dim() - 1))
+        return (d.detach().float() > t).float()
+    return cut(l_detail), cut(r_detail)
 
 
 class DecNet(nn.Module):
-    """The faithful DecNet.  Module and parameter names follow the flax
-    model's (`feature_extractor`, `cost_reg`, `dyn_up_i`, `soft_att_i`,
+    """DecNet.  Module and parameter names follow the flax model's
+    (`feature_extractor`, `cost_reg`, `detail_i`, `dyn_up_i`, `soft_att_i`,
     `refine_i`, `match_logt_i`), so `weights.py` maps checkpoints by name.
 
     `use_kernels` (default True) sends the sparse matching (forward and
@@ -57,23 +120,48 @@ class DecNet(nn.Module):
         self.use_kernels = use_kernels
         dtype = cfg.torch_dtype
         s, ns = cfg.down_scale, cfg.num_stage
-        self.feature_extractor = FeatureExtractor(cfg.base_channels, s,
-                                                  dtype=dtype)
+        self.feature_extractor = FeatureExtractor(
+            cfg.base_channels, s, s2d_last=cfg.s2d_fine, dtype=dtype)
         chans = self.feature_extractor.out_channels
         self.cost_reg = CostRegNet(chans[0], dtype=dtype)
         for stage in range(1, ns):
             c, i = chans[stage], stage - 1
-            self.add_module(f"dyn_up_{i}",
-                            DynamicUpsampling(c, s, dtype=dtype))
-            self.add_module(f"soft_att_{i}",
-                            SoftAttention(c + 4, cfg.base_channels,
-                                          dtype=dtype))
-            self.add_module(f"refine_{i}",
-                            Refinement(c, stage_id=stage, dtype=dtype))
+            if self._s2d(stage):
+                hidden = s * s * cfg.base_channels * s ** (ns - 1 - stage)
+                if cfg.use_detail:
+                    self.add_module(f"detail_{i}", DetailHeadS2D(
+                        chans[stage - 1], c, s, dtype=dtype))
+                self.add_module(f"dyn_up_{i}", DynamicUpsampling(
+                    c, s, pre_unfolded=True, out_s2d=True, dtype=dtype))
+                self.add_module(f"soft_att_{i}", SoftAttentionS2D(
+                    c + 4 * s * s, s, hidden=s * s * cfg.base_channels,
+                    dtype=dtype))
+                kern, dil = [3] * 7, [1] * 7
+                for ci, d in zip((0, 2, 4), Refinement.DILATIONS[stage]):
+                    kern[ci], dil[ci] = packed_geometry(d, s)
+                self.add_module(f"refine_{i}", RefinementS2D(
+                    2 * c + s * s, s, hidden=hidden, kernels=kern,
+                    dilations=dil, dtype=dtype))
+            else:
+                if cfg.use_detail:
+                    self.add_module(f"detail_{i}", DetailHead(
+                        chans[stage - 1], c, dtype=dtype))
+                self.add_module(f"dyn_up_{i}",
+                                DynamicUpsampling(c, s, dtype=dtype))
+                self.add_module(f"soft_att_{i}",
+                                SoftAttention(c + 4, cfg.base_channels,
+                                              dtype=dtype))
+                self.add_module(f"refine_{i}",
+                                Refinement(c, stage_id=stage, dtype=dtype))
             if cfg.match_temp_learned:
                 self.register_parameter(
                     f"match_logt_{i}",
                     nn.Parameter(torch.tensor(math.log(cfg.match_temp))))
+
+    def _s2d(self, stage: int) -> bool:
+        """Whether fine stage `stage` runs in s2d form (s2d_stages 1: the
+        full-resolution stage)."""
+        return self.cfg.s2d_fine and stage == self.cfg.num_stage - 1
 
     def _temperature(self, i: int) -> Optional[torch.Tensor]:
         cfg = self.cfg
@@ -84,13 +172,16 @@ class DecNet(nn.Module):
         return None
 
     def forward(self, left: torch.Tensor, right: torch.Tensor,
-                left_masks: Sequence[torch.Tensor],
-                right_masks: Sequence[torch.Tensor],
-                max_disp: Optional[int] = None
+                left_masks: Optional[Sequence[torch.Tensor]] = None,
+                right_masks: Optional[Sequence[torch.Tensor]] = None,
+                max_disp: Optional[int] = None,
+                ablate_sparse: bool = False
                 ) -> Dict[str, List[torch.Tensor]]:
         """left/right (B,3,H,W) normalised images, H and W divisible by 27;
-        masks: per fine stage, coarsest first, (B,h_s,w_s) in {0,1}.
-        `max_disp` may be overridden per call (a scene's disparity range)."""
+        masks: per fine stage, coarsest first, (B,h_s,w_s) in {0,1} (not
+        read with use_detail, whose heads make them).  `max_disp` may be
+        overridden per call (a scene's disparity range); `ablate_sparse`
+        fuses the dense branch alone (fused = dense), the ablation eval."""
         cfg = self.cfg
         dtype = cfg.torch_dtype
         scale, ns = cfg.down_scale, cfg.num_stage
@@ -101,6 +192,7 @@ class DecNet(nn.Module):
         left_all = self.feature_extractor(left.to(dtype))
         right_all = self.feature_extractor(right.to(dtype))
         out: Dict[str, List[torch.Tensor]] = {k: [] for k in OUTPUT_KEYS}
+        out["left_feats"], out["right_feats"] = left_all, right_all
 
         lf, rf = left_all[0], right_all[0]
         d0 = max_disp // scale ** (ns - 1)
@@ -110,44 +202,95 @@ class DecNet(nn.Module):
         pred = disparity_regression(
             cost, uniform_disp_samples(d0, B, H, W, device=lf.device))
         out["preds"].append(pred)
+        pre_left, pre_right = lf, rf
 
         for stage in range(1, ns):
             i = stage - 1
-            lf = left_all[stage].contiguous()
-            rf = right_all[stage].contiguous()
+            s2d = self._s2d(stage)
+            lf, rf = left_all[stage], right_all[stage]
+            # the matching and the warp read full-resolution features
+            lf_full = depth_to_space(lf, scale) if s2d else lf
+            rf_full = depth_to_space(rf, scale) if s2d else rf
+            lf_full, rf_full = lf_full.contiguous(), rf_full.contiguous()
             cur_max_disp = max_disp // scale ** (ns - stage - 1)
-            lmask = left_masks[i].float().contiguous()
-            rmask = right_masks[i].float().contiguous()
+
+            if cfg.use_detail:
+                head = getattr(self, f"detail_{i}")
+                l_detail = torch.sigmoid(head(lf, pre_left))
+                r_detail = torch.sigmoid(head(rf, pre_right))
+                lmask, rmask = binarise_detail_pair(l_detail, r_detail, cfg)
+                if s2d:
+                    lmask_s2d = lmask
+                    lmask, rmask = (s2d_to_plane(m, scale)
+                                    for m in (lmask, rmask))
+                    l_detail, r_detail = (s2d_to_plane(d, scale)
+                                          for d in (l_detail, r_detail))
+                out["left_details"].append(l_detail)
+                out["right_details"].append(r_detail)
+            else:
+                lmask = left_masks[i].float()
+                rmask = right_masks[i].float()
+                if s2d:
+                    lmask_s2d = plane_to_s2d(lmask, scale)
+            lmask, rmask = lmask.contiguous(), rmask.contiguous()
             out["masks_used"].append(lmask)
+            pre_left, pre_right = lf_full, rf_full
 
             cur = pred.detach() if cfg.grad_method == "detach" else pred
             dense = getattr(self, f"dyn_up_{i}")(cur, lf)
-            out["dense"].append(dense)
+            dense_full = s2d_to_plane(dense, scale) if s2d else dense
+            out["dense"].append(dense_full)
 
             temp = self._temperature(i)
-            q = lf if temp is None else (lf.float() * temp).to(lf.dtype)
-            cand = candidate_availability(rmask, cur_max_disp)
+            q = lf_full if temp is None else (
+                lf_full.float() * temp).to(lf_full.dtype)
+            win, center = 0, None
+            if cfg.match_window > 0:
+                win = max(2, round(cfg.match_window
+                                   / scale ** (ns - 1 - stage)))
+                center = dense_full.detach().float().contiguous()
+                cand = candidate_availability_windowed(rmask, cur_max_disp,
+                                                       center, win)
+            else:
+                cand = candidate_availability(rmask, cur_max_disp)
             out["cand"].append(cand)
             sparse, var = sparse_matching_with_var(
-                q.contiguous(), rf, lmask, rmask, cur_max_disp,
-                use_kernel=self.use_kernels)
+                q.contiguous(), rf_full, lmask, rmask, cur_max_disp, center,
+                win, use_kernel=self.use_kernels)
             var = var.detach()
             out["sparse_raw"].append(sparse)
             if cfg.cand_fallback:
-                sparse = torch.where(cand > 0, sparse, dense)
+                sparse = torch.where(cand > 0, sparse, dense_full)
             out["sparse"].append(sparse)
             out["var"].append(var)
 
-            att_in = torch.cat([lf] + [x[:, None].to(dtype) for x in
-                                       (dense, sparse, lmask, -var)], dim=1)
-            soft = getattr(self, f"soft_att_{i}")(att_in)
-            out["soft_mask"].append(soft)
+            if s2d:
+                sparse_s2d = plane_to_s2d(sparse, scale)
+                soft = getattr(self, f"soft_att_{i}")(
+                    lf, [dense, sparse_s2d, lmask_s2d,
+                         -plane_to_s2d(var, scale)])
+                out["soft_mask"].append(s2d_to_plane(soft, scale))
+                sparse = sparse_s2d
+            else:
+                att_in = torch.cat([lf] + [x[:, None].to(dtype) for x in
+                                           (dense, sparse, lmask, -var)],
+                                   dim=1)
+                soft = getattr(self, f"soft_att_{i}")(att_in)
+                out["soft_mask"].append(soft)
 
-            fused = dense * (1.0 - soft) + soft * sparse
-            out["fusion"].append(fused)
+            fused = dense if ablate_sparse else (
+                dense * (1.0 - soft) + soft * sparse)
+            fused_full = s2d_to_plane(fused, scale) if s2d else fused
+            out["fusion"].append(fused_full)
 
-            pred, residual = getattr(self, f"refine_{i}")(
-                lf, rf, fused, cur_max_disp, warp=warp)
+            if s2d:
+                pred_s2d, residual = getattr(self, f"refine_{i}")(
+                    lf, rf_full, fused, fused_full, cur_max_disp, warp=warp)
+                pred = s2d_to_plane(pred_s2d, scale)
+                residual = s2d_to_plane(residual, scale)
+            else:
+                pred, residual = getattr(self, f"refine_{i}")(
+                    lf, rf_full, fused, cur_max_disp, warp=warp)
             out["residual"].append(residual)
             out["preds"].append(pred)
         return out

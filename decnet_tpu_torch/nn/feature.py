@@ -1,12 +1,20 @@
 """Shared-weight feature pyramid — the port of decnet_tpu/nn/feature.py
-(reference FeatExtNetChannelPlus), faithful form (`s2d_last=False`) with
-four stages.
+(reference FeatExtNetChannelPlus) with four stages, faithful or with the
+full-resolution level in space-to-depth form (`s2d_last`).
 
 Encoder: conv0 (C, full res) -> conv1 (3C, 1/3) -> conv2 (9C, 1/9) ->
 conv3 (27C, 1/27) with an ASPP context branch fused by 1x1 convs.  Decoder:
 three deconv blocks (stride-3 transposed conv + skip concat + 2 convs).
 Returns [stage0 (1/27, 27C), stage1 (1/9, 9C), stage2 (1/3, 3C),
-stage3 (full, C)]: 216/72/24/8 channels for C = 8."""
+stage3 (full, C)]: 216/72/24/8 channels for C = 8.
+
+With `s2d_last` the image enters as `space_to_depth(x, 3)` (27 channels at
+1/3), the full-resolution level runs at 1/3 with 9C channels (conv1_0 at
+stride 1), and the last decoder block is a 1x1 conv of the 1/3 level
+(`deconv1_s2d`, the stride-3 transposed conv in s2d space), a concat with
+the skip and two convs (`deconv1_c0`, `deconv1_c1`): stage3 is then
+(B, 9C, H/3, W/3), channel (i*3 + j)*C + c holding phase (i, j).  The
+1/3-res level in s2d form (`s2d_mid`, s2d_stages >= 2) is not ported."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -14,7 +22,7 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 
-from decnet_tpu_torch.nn.layers import ConvUnit, DeconvUnit
+from decnet_tpu_torch.nn.layers import ConvUnit, DeconvUnit, space_to_depth
 
 
 class ASPP(nn.Module):
@@ -53,19 +61,21 @@ class DeconvBlock(nn.Module):
 
 class FeatureExtractor(nn.Module):
     def __init__(self, base_channels: int = 8, down_scale: int = 3,
-                 dtype=torch.float32):
+                 s2d_last: bool = False, dtype=torch.float32):
         super().__init__()
         C, s = base_channels, down_scale
         c1, c2, c3 = C * s, C * s * s, C * s ** 3
-        self.out_channels = [c3, c2, c1, C]     # coarse -> fine
+        self.scale, self.s2d_last = s, s2d_last
+        C0 = C * s * s if s2d_last else C
+        self.out_channels = [c3, c2, c1, C0]    # coarse -> fine
 
         def unit(name, cin, cout, k=3, stride=1, padding=1):
             self.add_module(name, ConvUnit(cin, cout, k, stride=stride,
                                            padding=padding, dtype=dtype))
 
-        unit("conv0_0", 3, C)
-        unit("conv0_1", C, C)
-        unit("conv1_0", C, c1, stride=s)
+        unit("conv0_0", 3 * s * s if s2d_last else 3, C0)
+        unit("conv0_1", C0, C0)
+        unit("conv1_0", C0, c1, stride=1 if s2d_last else s)
         unit("conv1_1", c1, c1)
         unit("conv1_2", c1, c1)
         unit("conv2_0", c1, c2, stride=s)
@@ -81,10 +91,17 @@ class FeatureExtractor(nn.Module):
         self.deconv3 = DeconvBlock(c3, c2, c2, dtype=dtype)
         unit("trans1", c1, c1, k=1, padding=0)
         self.deconv2 = DeconvBlock(c2, c1, c1, dtype=dtype)
-        unit("trans0", C, C, k=1, padding=0)
-        self.deconv1 = DeconvBlock(c1, C, C, dtype=dtype)
+        unit("trans0", C0, C0, k=1, padding=0)
+        if s2d_last:
+            unit("deconv1_s2d", c1, C0, k=1, padding=0)
+            unit("deconv1_c0", 2 * C0, C0)
+            unit("deconv1_c1", C0, C0)
+        else:
+            self.deconv1 = DeconvBlock(c1, C, C, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.s2d_last:
+            x = space_to_depth(x, self.scale)
         conv0 = self.conv0_1(self.conv0_0(x))
         conv1 = self.conv1_2(self.conv1_1(self.conv1_0(conv0)))
         conv2 = self.conv2_2(self.conv2_1(self.conv2_0(conv1)))
@@ -94,5 +111,10 @@ class FeatureExtractor(nn.Module):
         stage0 = self.fusion(torch.cat([conv3_2, ctx], dim=1))
         stage1 = self.deconv3(self.trans2(conv2), stage0)
         stage2 = self.deconv2(self.trans1(conv1), stage1)
-        stage3 = self.deconv1(self.trans0(conv0), stage2)
+        skip0 = self.trans0(conv0)
+        if self.s2d_last:
+            y = torch.cat([self.deconv1_s2d(stage2), skip0], dim=1)
+            stage3 = self.deconv1_c1(self.deconv1_c0(y))
+        else:
+            stage3 = self.deconv1(skip0, stage2)
         return [stage0, stage1, stage2, stage3]

@@ -1,5 +1,5 @@
-"""Conv building blocks, NCHW/NCDHW — the port of decnet_tpu/nn/layers.py:
-200-357 and :414-421.
+"""Conv building blocks and layout helpers, NCHW/NCDHW — the port of
+decnet_tpu/nn/layers.py:200-413 and :414-421.
 
 Each unit casts its convolution weights to its compute dtype at every call,
 as the JAX package does.  For serving they are stored in that dtype, so the
@@ -147,3 +147,33 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
         raise ValueError(f"pixel_shuffle needs {r * r} channels, got {C}")
     x = x.reshape(B, r, r, H, W).permute(0, 3, 1, 4, 2)   # B, H, i, W, j
     return x.reshape(B, 1, H * r, W * r)
+
+
+def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B,C,H,W) -> (B,r*r*C,H/r,W/r), channel (i*r + j)*C + c: the JAX
+    package's phase-major order.  torch's F.pixel_unshuffle orders the
+    channels c*r*r + i*r + j instead; the two agree only for C = 1, and the
+    s2d convolutions' weights are stored for the phase-major order."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, C, H // r, r, W // r, r)
+    x = x.permute(0, 3, 5, 1, 2, 4)             # B, i, j, C, H/r, W/r
+    return x.reshape(B, r * r * C, H // r, W // r)
+
+
+def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of `space_to_depth`: (B,r*r*C,h,w) -> (B,C,h*r,w*r)."""
+    B, RC, h, w = x.shape
+    C = RC // (r * r)
+    x = x.reshape(B, r, r, C, h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)             # B, C, h, i, w, j
+    return x.reshape(B, C, h * r, w * r)
+
+
+def plane_to_s2d(m: torch.Tensor, r: int) -> torch.Tensor:
+    """Planar map (B,H,W) -> s2d plane (B,r*r,H/r,W/r), channel i*r + j."""
+    return space_to_depth(m[:, None], r)
+
+
+def s2d_to_plane(p: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of `plane_to_s2d`: (B,r*r,h,w) -> (B,h*r,w*r)."""
+    return depth_to_space(p, r)[:, 0]

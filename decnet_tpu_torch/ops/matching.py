@@ -1,5 +1,5 @@
 """Masked sparse stereo matching and its variance, with the analytic
-backward — the port of decnet_tpu/ops/matching.py:115-134, :384-433 and the
+backward — the port of decnet_tpu/ops/matching.py:115-166, :384-433 and the
 windowed twin :590-620.
 
 For each left pixel with ref_mask != 0 the disparity band of right pixels
@@ -31,6 +31,31 @@ def candidate_availability(tar_mask: torch.Tensor,
     m = (tar_mask != 0).float().reshape(B * H, 1, W)
     m = F.max_pool1d(F.pad(m, (max_disp - 1, 0)), max_disp, stride=1)
     return m.reshape(B, H, W)
+
+
+def candidate_availability_windowed(tar_mask: torch.Tensor, max_disp: int,
+                                    center: torch.Tensor,
+                                    window: int) -> torch.Tensor:
+    """`candidate_availability` of the windowed scan: 1.0 where some d with
+    |d - center| <= window and 0 <= d <= min(max_disp - 1, x) has
+    tar_mask[x - d] != 0, else 0.0.  The integer d range is
+    [ceil(center - window), floor(center + window)] cut to the band; its
+    source columns are counted by a prefix sum and two gathers."""
+    m = (tar_mask != 0).float()
+    W = m.shape[-1]
+    xs = torch.arange(W, device=m.device)
+    cf = center.float()
+    d_lo = torch.clamp(torch.ceil(cf - window).int(), min=0)
+    d_hi = torch.minimum(torch.floor(cf + window).int(),
+                         torch.clamp(xs, max=max_disp - 1).int())
+    nonempty = d_hi >= d_lo
+    p_hi = torch.clamp(xs - d_lo, 0, W - 1).long()   # largest source column
+    p_lo = (xs - d_hi).long()                        # smallest source column
+    S = torch.cumsum(m, dim=-1)
+    cnt_hi = torch.gather(S, -1, p_hi)
+    cnt_lo = torch.where(p_lo > 0, torch.gather(
+        S, -1, torch.clamp(p_lo - 1, 0, W - 1)), 0.0)
+    return (nonempty & (cnt_hi - cnt_lo > 0.5)).float()
 
 
 class _SparseMatchingWithVar(torch.autograd.Function):

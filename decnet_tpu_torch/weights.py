@@ -213,10 +213,11 @@ def warm_start(model: torch.nn.Module, variables: Union[str, Mapping]
     return counts
 
 
-def load_checkpoint(ckpt_dir: str, device="cuda") -> DecNet:
-    """DecNet built from `<ckpt_dir>/config.json` and filled from
+def load_checkpoint(ckpt_dir: str, device="cuda", **overrides) -> DecNet:
+    """DecNet built from `<ckpt_dir>/config.json` (model fields in
+    `overrides` win, e.g. dtype="float32") and filled from
     `<ckpt_dir>/params.npz`, in eval mode on `device`."""
     dev = resolve_device(device)
-    model = DecNet(load_config(ckpt_dir))
+    model = DecNet(load_config(ckpt_dir, **overrides))
     load_flax_variables(model, os.path.join(ckpt_dir, "params.npz"))
     return model.to(dev).eval()

@@ -34,8 +34,9 @@ def nchw(x):
         np.asarray(x).transpose(0, 3, 1, 2)))
 
 
-def jax_draws(key, b, h, w, max_disp):
-    """make_device_batch's uniform draws from `key`, in the port's layout."""
+def jax_draws(key, b, h, w, max_disp, grids=3):
+    """make_device_batch's uniform draws from `key`, in the port's layout;
+    the first `grids` texture grids of the three."""
     k_tex, k_bg, k_box, k_bar = jax.random.split(key, 4)
     bg = jax.random.uniform(k_bg, (b, 5, 5, 1), jnp.float32)
     rects = []
@@ -46,7 +47,7 @@ def jax_draws(key, b, h, w, max_disp):
             rects.append(torch.from_numpy(np.array(
                 jax.random.uniform(k1, (6, b), jnp.float32))))
     tex, k = [], k_tex
-    for gw in tsynth.texture_widths(w, max_disp):
+    for gw in tsynth.texture_widths(w, max_disp)[:grids]:
         k, k1 = jax.random.split(k)
         tex.append(nchw(jax.random.uniform(k1, (b, min(gw, 2 * h), gw, 3),
                                            jnp.float32)))

@@ -310,9 +310,15 @@ def test_full_config_loader_and_overrides():
     # what the JAX package reads back from the port's dict
     JaxConfig.from_dict(cfg.to_dict())
     for bad in ("loss.loss_type=chamfer", "train.packed_exec=1",
-                "data.variant=stressor", "mesh.tile=2"):
+                "mesh.tile=2"):
         with pytest.raises(NotImplementedError):
             tconfig.load_full_config(CKPT, [bad])
+    # the three stream variants are ported; any other name is an error
+    for v in ("stressor", "legacy"):
+        assert tconfig.load_full_config(
+            CKPT, [f"data.variant={v}"]).data.variant == v
+    with pytest.raises(ValueError):
+        tconfig.load_full_config(CKPT, ["data.variant=nosuch"])
     with pytest.raises(KeyError):
         tconfig.load_full_config(CKPT, ["train.no_such_key=1"])
 
