@@ -16,12 +16,17 @@ stream, max_disp 216, bf16, batch-statistic BN), holding a kernel-path step
 against a plain-path step and against kernel paths with planted faults.
 It serves the s2d model with learned detail masks and windowed matching
 (runs/ckpt_detail_r5) through the same demo entry points, kernel path
-against plain path, and it evaluates ckpt_faithful (legacy stream) and
+against plain path, and trains it from that checkpoint by its recipe
+through the train CLI (batch 8 of 162x486, bf16, alpha times the detail
+mask loss; the moments, dRef and dTar windowed inside the step), holding
+its kernel path against its plain path, rejecting planted faults, and
+resuming a saved run bit for bit.  It evaluates ckpt_faithful (legacy stream) and
 ckpt_detail_r5 (default stream) by `decnet_tpu_torch.cli.report_eval` at
 the JAX reports' protocol (540x972, max_disp 216, 24 batches of 4, seed
 37, bf16), each held to its JAX accuracy anchor within a band fixed in
 advance.  The windowed moments are held against their plain version at
-that path's shapes too.
+that path's shapes too, and the windowed moments, dRef and dTar at the
+s2d training step's.
 One line is printed per phase as it ends; the line before the last is a
 JSON object describing every kernel, the last line is the device record.
 Any failed check ends the run with a non-zero exit.
@@ -34,10 +39,13 @@ it (and --out when given).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -63,6 +71,10 @@ TRAIN_STAGES = [(72, 18, 54, 24), (24, 54, 162, 72), (8, 162, 486, 216)]
 # (dref_plan / dtar_plan: 3 and 2 a row)
 SPLIT_ROW_STAGES = [(2, TRAIN_STAGES[1]), (1, TRAIN_STAGES[2])]
 TRAIN_STEPS = 5           # timed, after one warm-up step (rate 0)
+TRAIN_S2D_STEPS = 3       # the same for ckpt_detail_r5's recipe
+# the windows of match_window 12 at the fine stages: max(2, round(12 / 9)),
+# round(12 / 3), 12
+WINDOWS = (2, 4, 12)
 # the faithful run's (batch, crop h, crop w, max_disp, dtype): config.json
 # holds it
 TRAIN_SHAPE = (TRAIN_B, 162, 486, 216, "bfloat16")
@@ -94,6 +106,16 @@ SERVE_MEAN_TOL = 0.05     # px, kernel path vs plain path, mean |delta|
 #   middle of the two, ~40x from each.
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_COS = 0.999
+#   a second check, on the gradient at the matching's inputs (the ref and
+#   tar features of the three fine stages, read from the matching's
+#   backward node in the kernel-path step): cosine against the plain
+#   backward's on the same saved inputs and upstream gradient, the same
+#   0.999.  With a window the matching scans ~13x fewer pairs than the
+#   full band, so a zeroed backward kernel moves the whole gradient less;
+#   and the two paths' windows are cut at centres that differ by the
+#   forward's rounding, which moves the gradients at the matching's inputs
+#   by more than the kernels do.  This check sees the kernels' own
+#   outputs.  A fault is rejected when either check fails.
 #   planted faults, each on the kernel path of that step.  The check must
 #   reject a backward kernel's output zeroed.  The moments' band one
 #   disparity short in the forward (an off-by-one) is only read: it moves
@@ -115,7 +137,10 @@ REQUESTS = 3              # served after one warm-up request
 # the windowed moments at the s2d detail path's shapes (that request's fine
 # stages; windows max(2, round(12 / 9)), round(12 / 3), 12)
 WINDOWED_STAGES = [(C, H, W, D, win) for (C, H, W, D), win
-                   in zip(STAGES, (2, 4, 12))]
+                   in zip(STAGES, WINDOWS)]
+# ... and at the training stages of ckpt_detail_r5's recipe (B = 8)
+TRAIN_WINDOWED_STAGES = [(C, H, W, D, win) for (C, H, W, D), win
+                         in zip(TRAIN_STAGES, WINDOWS)]
 # the accuracy anchors: scripts/report_eval.py's protocol on the TPU
 # (540x972, max_disp 216, 24 batches of 4, seed 37, the val stream), final
 # EPE (stage3_epe) and the sparse-ablated final EPE of the JAX reports.
@@ -195,6 +220,15 @@ def bound(nbytes, flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def smooth_center(torch, gen, B, H, W, D):
+    """A smooth disparity field in [0, D), as the dense prediction gives
+    the window's centres: a 4x4 grid of uniform values, bilinear."""
+    coarse = torch.rand(B, 1, 4, 4, generator=gen, device=DEV) * D
+    return torch.nn.functional.interpolate(
+        coarse, size=(H, W), mode="bilinear",
+        align_corners=False)[:, 0].contiguous()
 
 
 def stage_inputs(torch, gen, B, C, H, W, D):
@@ -319,16 +353,23 @@ def backward_parity(torch, spamat, gen, flush_buf):
     outscores max_cost (0 at an inactive query) by far, and an ungated exp
     overflows; and at SPLIT_ROW_STAGES, f32 and bf16, where a block owns a
     segment of a row and its window starts inside the row.  Times in bf16
-    at B = 8.  Returns per-kernel records."""
-    rec = {"spamat_dref": [], "spamat_dtar": []}
+    at B = 8.  Then windowed as the s2d training step runs them: at the
+    three training shapes with windows 2 / 4 / 12 around a smooth centre
+    (`smooth_center`), f32 and bf16, timed in bf16 (records under
+    "<name>_windowed").  Returns per-kernel records."""
+    rec = {"spamat_dref": [], "spamat_dtar": [], "spamat_dref_windowed": [],
+           "spamat_dtar_windowed": []}
     dts = (torch.float32, torch.bfloat16)
-    cases = [(TRAIN_B, shape, dt, 0, False) for shape in TRAIN_STAGES
+    # (B, shape, dtype, window, adversarial, smooth centre)
+    cases = [(TRAIN_B, shape, dt, 0, False, False) for shape in TRAIN_STAGES
              for dt in dts]
-    cases.append((TRAIN_B, TRAIN_STAGES[1], torch.float32, 6, False))
-    cases.append((TRAIN_B, TRAIN_STAGES[0], torch.bfloat16, 0, True))
-    cases += [(B, shape, dt, 0, False) for B, shape in SPLIT_ROW_STAGES
-              for dt in dts]
-    for B, (C, H, W, D), dt, window, adversarial in cases:
+    cases.append((TRAIN_B, TRAIN_STAGES[1], torch.float32, 6, False, False))
+    cases.append((TRAIN_B, TRAIN_STAGES[0], torch.bfloat16, 0, True, False))
+    cases += [(B, shape, dt, 0, False, False)
+              for B, shape in SPLIT_ROW_STAGES for dt in dts]
+    cases += [(TRAIN_B, (C, H, W, D), dt, win, False, True)
+              for C, H, W, D, win in TRAIN_WINDOWED_STAGES for dt in dts]
+    for B, (C, H, W, D), dt, window, adversarial, smooth in cases:
         rm, tm, feat32, tar32, disp = stage_inputs(torch, gen, B, C, H, W, D)
         if adversarial:
             feat32 = torch.where((rm == 0)[:, None], feat32 * ADVERSARIAL_SCALE,
@@ -337,7 +378,8 @@ def backward_parity(torch, spamat, gen, flush_buf):
                                 tar32)
         dname = str(dt).split(".")[-1]
         ref, tar = feat32.to(dt), tar32.to(dt)
-        center = disp if window else None
+        center = (smooth_center(torch, gen, B, H, W, D) if smooth
+                  else disp if window else None)
         out, ss, mc = backward_residuals(torch, spamat, ref, tar, rm, tm, D,
                                          center, window)
         g = torch.randn(B, H, W, generator=gen, device=DEV)
@@ -347,8 +389,10 @@ def backward_parity(torch, spamat, gen, flush_buf):
         got = (spamat.spamat_dref(*kargs), spamat.spamat_dtar(*kargs))
         want = spamat.spamat_backward_plain(*args)
         torch.cuda.synchronize()
-        pairs = candidate_pairs(torch, rm, tm, D)
-        for name, gk, gp in zip(rec, got, want):
+        pairs = candidate_pairs(torch, rm, tm, D, center, window)
+        names = (["spamat_dref_windowed", "spamat_dtar_windowed"] if smooth
+                 else ["spamat_dref", "spamat_dtar"])
+        for name, gk, gp in zip(names, got, want):
             case = (f"{name} B={B} C={C} H={H} W={W} D={D} {dname} "
                     f"window={window}" + (" adversarial" if adversarial
                                           else ""))
@@ -364,13 +408,14 @@ def backward_parity(torch, spamat, gen, flush_buf):
             r = {"shape": [B, C, H, W, D], "dtype": dname, "window": window,
                  "adversarial": adversarial, "max_abs_err": err,
                  "rel_err": rel, "max_grad": scale}
-            if (dt == torch.bfloat16 and B == TRAIN_B and not window
-                    and not adversarial):
-                kernel = getattr(spamat, name)
-                # ref, tar, 4 f32 maps in; one gradient out; per candidate
-                # pair 2C flops for the score, 2C to accumulate, ~8 more
+            if (dt == torch.bfloat16 and B == TRAIN_B and not adversarial
+                    and (smooth or not window)):
+                kernel = getattr(spamat, name.replace("_windowed", ""))
+                # ref, tar, 4 f32 maps (and the centre) in; one gradient
+                # out; per candidate pair 2C flops for the score, 2C to
+                # accumulate, ~8 more
                 nbytes = 3 * ref.numel() * ref.element_size() \
-                    + 4 * rm.numel() * 4
+                    + (5 if window else 4) * rm.numel() * 4
                 flops = pairs * (4 * C + 8)
                 bms, by = bound(nbytes, flops)
                 r.update(
@@ -394,6 +439,111 @@ def flat_grads(torch, grads):
     return torch.cat([g.float().flatten() for g in grads])
 
 
+@contextlib.contextmanager
+def matching_backward_pairs(torch, spamat):
+    """Per call of the sparse matching's backward in a step, a pair of
+    flattened f32 vectors: the gradients it returned for its ref and tar
+    features, and `spamat_backward_plain`'s on the same saved inputs and
+    the same upstream gradient (computed by a pre-hook on the matching's
+    autograd node, while its saved tensors are alive)."""
+    from decnet_tpu_torch.models import decnet as tdecnet
+    real = tdecnet.sparse_matching_with_var
+    pairs = []
+    flat = lambda gs: torch.cat([g.float().flatten() for g in gs])
+
+    def hooked(*a, **k):
+        out, var = real(*a, **k)
+        node, plain = out.grad_fn, []
+
+        def pre(go):
+            ref, tar, rm, tm, center, o, ss, mc = node.saved_tensors
+            max_disp, window, _ = node.cfg
+            plain.append(flat(spamat.spamat_backward_plain(
+                ref, tar, rm, tm, o, ss, mc, go[0].contiguous(), max_disp,
+                center, window)))
+
+        def post(gi, go):
+            pairs.append((flat(gi[:2]), plain.pop()))
+        if node is not None:
+            node.register_prehook(pre)
+            node.register_hook(post)
+        return out, var
+    tdecnet.sparse_matching_with_var = hooked
+    try:
+        yield pairs
+    finally:
+        tdecnet.sparse_matching_with_var = real
+
+
+def step_checks(torch, spamat, model, b, cfg, where):
+    """A kernel-path step held against a plain-path step on one batch and
+    one set of weights (loss, the whole gradient's cosine), and in the
+    kernel-path step the gradient at the matching's inputs against the
+    plain backward's on the same inputs (`matching_backward_pairs`); then
+    the same against kernel paths with each planted fault, which must be
+    rejected where FAULTS says so.  The model's state is put back after
+    each step."""
+    from decnet_tpu_torch.train.step import loss_and_grads
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def run_step(use_kernels):
+        model.use_kernels = use_kernels
+        try:
+            with matching_backward_pairs(torch, spamat) as pairs:
+                lg, grads = loss_and_grads(model, b, cfg)
+        finally:
+            model.load_state_dict(state)
+            model.use_kernels = True
+        if len(pairs) != 3:
+            fail(f"{where}: the matching's backward ran {len(pairs)} times, "
+                 f"not 3")
+        return (float(lg["total"]), flat_grads(torch, grads),
+                [torch.cat(x) for x in zip(*pairs)])
+
+    # in f64: an f32 cosine of ~1e7 terms is off by up to ~1e-3
+    cos = lambda x, y: float(torch.nn.functional.cosine_similarity(
+        x.double(), y.double(), dim=0))
+    lp, gp, _ = run_step(False)
+
+    def against_plain(lk, gk, matching):
+        """(loss relative error, gradient cosine, matching-input gradient
+        cosine), and whether all are accepted."""
+        rel, c, mc = abs(lk - lp) / abs(lp), cos(gk, gp), cos(*matching)
+        ok = (torch.isfinite(gk).all() and rel <= TRAIN_LOSS_RTOL
+              and c >= TRAIN_GRAD_COS and mc >= TRAIN_GRAD_COS)
+        return rel, c, mc, bool(ok)
+
+    lk, gk, mk = run_step(True)
+    loss_rel, grad_cos, match_cos, ok = against_plain(lk, gk, mk)
+    print(f"  {where} kernel vs plain: loss rel {loss_rel:.4g} gradient "
+          f"cosine {grad_cos:.7g} matching-input cosine {match_cos:.7g}",
+          flush=True)
+    if not ok:
+        fail(f"{where} step kernel vs plain: loss rel {loss_rel:.3e} (tol "
+             f"{TRAIN_LOSS_RTOL}), gradient cosine {grad_cos:.6f}, "
+             f"matching-input cosine {match_cos:.6f} (tol {TRAIN_GRAD_COS}),"
+             f" finite {bool(torch.isfinite(gk).all())}")
+    faults = {}
+    for fault, (name, must_reject, planted) in FAULTS.items():
+        real = getattr(spamat, name)
+        setattr(spamat, name, functools.wraps(real)(planted(torch, real)))
+        try:
+            rel, c, mc, passed = against_plain(*run_step(True))
+        finally:
+            setattr(spamat, name, real)
+        faults[fault] = {"loss_rel": rel, "grad_cos": c,
+                         "matching_grad_cos": mc, "rejected": not passed}
+        print(f"  {where} planted fault {fault}: loss rel {rel:.4g} "
+              f"gradient cosine {c:.7g} matching-input cosine {mc:.7g}"
+              f" -> {'rejected' if not passed else 'passed'}", flush=True)
+        if passed and must_reject:
+            fail(f"{where}: the kernel vs plain step check passed with "
+                 f"{fault}")
+    return {"plain_loss_rel": loss_rel, "plain_grad_cos": grad_cos,
+            "plain_matching_grad_cos": match_cos, "planted_faults": faults,
+            "kernel_loss": lk, "plain_loss": lp}
+
+
 def train_phase(torch, counters):
     """A few optimizer steps of the faithful model from the checkpoint
     through the train CLI's entry (`prepare`, then `Run.step`), with the
@@ -404,7 +554,7 @@ def train_phase(torch, counters):
     from decnet_tpu_torch.cli import train as tcli
     from decnet_tpu_torch.ops.kernels import spamat
     from decnet_tpu_torch.train.checkpoint import save_params
-    from decnet_tpu_torch.train.step import loss_and_grads, train_step
+    from decnet_tpu_torch.train.step import train_step
 
     ckpt_out = os.path.join(ROOT, "build", "decnet_tpu_torch", "smoke_ckpt")
     run = tcli.prepare(["--config", os.path.join(CKPT, "config.json"),
@@ -470,51 +620,11 @@ def train_phase(torch, counters):
         print(f"  step {i + 2}: {m:.2f} ms loss={l['total']:.5f} "
               f"grad_norm={l['grad_norm']:.4f}", flush=True)
 
-    # kernel path vs plain path: one batch, one set of weights
-    b = batches[-1]
-    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-
-    def loss_and_flat_grads(use_kernels):
-        model.use_kernels = use_kernels
-        lg, grads = loss_and_grads(model, b, cfg)
-        model.load_state_dict(state)
-        model.use_kernels = True
-        return float(lg["total"]), flat_grads(torch, grads)
-
-    def against_plain(lk, gk):
-        """(loss relative error, gradient cosine) against the plain path;
-        a pair the tolerances accept."""
-        rel = abs(lk - lp) / abs(lp)
-        cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
-        ok = (torch.isfinite(gk).all() and rel <= TRAIN_LOSS_RTOL
-              and cos >= TRAIN_GRAD_COS)
-        return rel, cos, bool(ok)
-
-    lp, gp = loss_and_flat_grads(False)
-    lk, gk = loss_and_flat_grads(True)
-    loss_rel, cos, ok = against_plain(lk, gk)
-    if not ok:
-        fail(f"train step kernel vs plain: loss rel {loss_rel:.3e} (tol "
-             f"{TRAIN_LOSS_RTOL}), gradient cosine {cos:.6f} (tol "
-             f"{TRAIN_GRAD_COS}), finite {bool(torch.isfinite(gk).all())}")
-    # the same comparison against kernel paths with a planted fault
-    faults = {}
-    for fault, (name, must_reject, planted) in FAULTS.items():
-        real = getattr(spamat, name)
-        setattr(spamat, name, functools.wraps(real)(planted(torch, real)))
-        try:
-            rel, c, passed = against_plain(*loss_and_flat_grads(True))
-        finally:
-            setattr(spamat, name, real)
-        faults[fault] = {"loss_rel": rel, "grad_cos": c}
-        print(f"  planted fault {fault}: loss rel {rel:.4g} gradient cosine "
-              f"{c:.7g}", flush=True)
-        if passed and must_reject:
-            fail(f"the kernel vs plain step check passed with {fault}")
-
+    checks = step_checks(torch, spamat, model, batches[-1], cfg, "train")
     # one freeze-BN step: running statistics bit-identical, parameters move
     s1, p2 = snapshot("stats"), snapshot("params")
-    finite_logs(train_step(run.state, b, cfg, freeze_bn=True), "freeze step")
+    finite_logs(train_step(run.state, batches[-1], cfg, freeze_bn=True),
+                "freeze step")
     if moved(s1) or not moved(p2):
         fail("freeze-BN step moved the BN statistics or no parameter")
     path = save_params(ckpt_out, model, cfg)
@@ -525,10 +635,158 @@ def train_phase(torch, counters):
     return {"launches": launches, "step_ms": ms, "warmup_ms": warm_ms,
             "peak_mem_mb": peak_mb, "first_loss": first["total"],
             "losses": [l["total"] for l in logs],
+            "grad_norms": [l["grad_norm"] for l in logs], **checks}
+
+
+@contextlib.contextmanager
+def recorded_windows(module, names):
+    """Replaces each kernel wrapper `module.<name>` by one that records the
+    window each call receives (0 without a centre) and calls it.  The
+    wrappers count their launches on their module-level name, so the
+    count moves to the stand-in while it is installed and back after."""
+    seen = {n: [] for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def stand_in(n):
+        sig = inspect.signature(real[n])
+
+        def call(*a, **k):
+            args = sig.bind(*a, **k)
+            args.apply_defaults()
+            seen[n].append(int(args.arguments["window"])
+                           if args.arguments["center"] is not None else 0)
+            return real[n](*a, **k)
+        return functools.update_wrapper(call, real[n])
+    for n in names:
+        setattr(module, n, stand_in(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            real[n].launches = getattr(module, n).launches
+            setattr(module, n, real[n])
+
+
+def train_s2d_phase(torch, counters):
+    """ckpt_detail_r5's recipe trained from its checkpoint through the
+    train CLI's entry (`prepare`, then `Run.step`): the s2d model with
+    quantile learned masks, windowed matching, alpha times the detail mask
+    loss.  A rate-0 warm-up step, TRAIN_S2D_STEPS timed steps with their
+    launches and the windows the kernel wrappers received, the kernel vs
+    plain step check with planted faults (`step_checks`), then a resume
+    round trip: save, `prepare` a fresh run on the same directory, and
+    require the same parameters, BN statistics, optimizer state, step and
+    next batch, bit for bit."""
+    import numpy as np
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.ops.kernels import spamat
+    from decnet_tpu_torch.train.checkpoint import PARAMS_FILE
+
+    ckpt_out = os.path.join(ROOT, "build", "decnet_tpu_torch",
+                            "smoke_ckpt_s2d")
+    shutil.rmtree(ckpt_out, ignore_errors=True)   # a fresh run, not resumed
+    argv = ["--config", os.path.join(CKPT_DETAIL, "config.json"),
+            "--dataset", "synthetic", "--init_from", CKPT_DETAIL, "--steps",
+            str(TRAIN_S2D_STEPS + 1), "--ckpt_dir", ckpt_out, "--device", DEV]
+    run = tcli.prepare(argv)
+    cfg, model = run.cfg, run.state.model
+    m = cfg.model
+    shape = (cfg.train.batch_size, cfg.train.crop_h, cfg.train.crop_w,
+             m.max_disp, m.dtype)
+    if shape != TRAIN_SHAPE or not (m.s2d_fine and m.use_detail
+                                    and m.match_window == 12
+                                    and m.thold_mode == "quantile"
+                                    and cfg.loss.alpha > 0):
+        fail(f"{CKPT_DETAIL} config {shape} is not the s2d + window + "
+             f"quantile-detail recipe at the training shape")
+    params = lambda: {k: v.detach().clone() for k, v in
+                      model.named_parameters()}
+    p0 = params()
+    t = time.perf_counter()
+    first = {k: float(v) for k, v in run.step(next(run.stream)).items()}
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    if any(not torch.equal(v, p0[k]) for k, v in model.named_parameters()):
+        fail("train_s2d step 1 (rate 0) moved parameters")
+    if not all(math.isfinite(v) for v in first.values()):
+        fail(f"train_s2d step 1: non-finite logs {first}")
+    batches = [next(run.stream) for _ in range(TRAIN_S2D_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    logs, ms = [], []
+    with recorded_windows(spamat, ("moments", "spamat_dref",
+                                   "spamat_dtar")) as windows:
+        for b in batches:
+            t = time.perf_counter()
+            out = run.step(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            logs.append({k: float(v) for k, v in out.items()})
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = 3 * TRAIN_S2D_STEPS
+    for k, n in launches.items():
+        if n != want:
+            fail(f"train_s2d: {k} launched {n} times in {TRAIN_S2D_STEPS} "
+                 f"steps, expected {want}")
+    for k, ws in windows.items():
+        if sorted(ws) != sorted(list(WINDOWS) * TRAIN_S2D_STEPS):
+            fail(f"train_s2d: {k} received windows {ws}, expected "
+                 f"{list(WINDOWS)} a step")
+    for i, (l, t_ms) in enumerate(zip(logs, ms)):
+        if not all(math.isfinite(v) for v in l.values()):
+            fail(f"train_s2d step {i + 2}: non-finite logs")
+        mask_terms = sum(l[f"mask{j}/{x}"] for j in range(3)
+                         for x in ("focal", "l1"))
+        print(f"  step {i + 2}: {t_ms:.2f} ms loss={l['total']:.5f} "
+              f"grad_norm={l['grad_norm']:.4f} mask terms={mask_terms:.5f}",
+              flush=True)
+
+    checks = step_checks(torch, spamat, model, batches[-1], cfg, "train_s2d")
+
+    # resume: save at the last step, then a fresh run on the directory
+    run.ckpt.save(run.state, cfg)
+    again = tcli.prepare(argv)
+    if again.state.step != run.state.step:
+        fail(f"resume: step {again.state.step}, saved {run.state.step}")
+    sa, sb = model.state_dict(), again.state.model.state_dict()
+    bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa = run.state.optimizer.state_dict()
+    ob = again.state.optimizer.state_dict()
+    bad += [f"optimizer {i}.{k}" for i, st in oa["state"].items()
+            for k, v in st.items()
+            if not torch.equal(v.cpu(), ob["state"][i][k].cpu())]
+    if oa["param_groups"] != ob["param_groups"]:
+        bad.append("optimizer param_groups")
+    nxt, nxt_again = next(run.stream), next(again.stream)
+    for k, v in nxt.items():
+        pairs = zip(v, nxt_again[k]) if isinstance(v, list) else \
+            [(v, nxt_again[k])]
+        if not all(torch.equal(x, y) for x, y in pairs):
+            bad.append(f"next batch {k}")
+    if bad:
+        fail(f"resume is not bit-exact: {bad[:5]} ({len(bad)} differ)")
+    stats = sum(k.endswith(("running_mean", "running_var")) for k in sa)
+    del again
+    with np.load(os.path.join(CKPT_DETAIL, PARAMS_FILE)) as z:
+        n_ref = len(z.files)
+    for path in (os.path.join(ckpt_out, str(run.state.step), PARAMS_FILE),
+                 os.path.join(ckpt_out, PARAMS_FILE)):
+        with np.load(path) as z:
+            if len(z.files) != n_ref:
+                fail(f"{path} holds {len(z.files)} arrays, "
+                     f"{CKPT_DETAIL} {n_ref}")
+    print(f"  resume: step {run.state.step}, {len(sa)} tensors ({stats} BN "
+          f"statistics), {len(oa['state'])} optimizer states and the next "
+          f"batch bit-equal; params.npz {n_ref} arrays", flush=True)
+    return {"launches": launches, "windows": windows, "step_ms": ms,
+            "warmup_ms": warm_ms, "peak_mem_mb": peak_mb,
+            "first_loss": first["total"],
+            "losses": [l["total"] for l in logs],
             "grad_norms": [l["grad_norm"] for l in logs],
-            "plain_loss_rel": loss_rel, "plain_grad_cos": cos,
-            "planted_faults": faults,
-            "kernel_loss": lk, "plain_loss": lp}
+            "resume_bit_exact": True, "params_npz_arrays": n_ref, **checks}
 
 
 def kernel_parity_extra(torch, spamat, kwarp, gen):
@@ -564,18 +822,16 @@ def kernel_parity_extra(torch, spamat, kwarp, gen):
     return errs
 
 
-def windowed_parity(torch, spamat, gen, flush_buf):
+def windowed_parity(torch, spamat, gen, flush_buf, stages=None, B=1):
     """The windowed moments against their plain version at the s2d detail
-    path's stage shapes (B = 1, one request), f32 and bf16, the centres a
-    smooth disparity in [0, D) as the dense prediction gives them; times in
+    path's stage shapes (one request by default; TRAIN_WINDOWED_STAGES at
+    B = 8 for its training step), f32 and bf16, the centres a smooth
+    disparity in [0, D) as the dense prediction gives them; times in
     bf16.  Returns the per-shape records."""
-    recs, B = [], 1
-    for C, H, W, D, win in WINDOWED_STAGES:
+    recs = []
+    for C, H, W, D, win in stages or WINDOWED_STAGES:
         rm, tm, feat32, tar32, _ = stage_inputs(torch, gen, B, C, H, W, D)
-        coarse = torch.rand(B, 1, 4, 4, generator=gen, device=DEV) * D
-        center = torch.nn.functional.interpolate(
-            coarse, size=(H, W), mode="bilinear", align_corners=False)[:, 0]
-        center = center.contiguous()
+        center = smooth_center(torch, gen, B, H, W, D)
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split(".")[-1]
             ref, tar = feat32.to(dt), tar32.to(dt)
@@ -610,8 +866,8 @@ def windowed_parity(torch, spamat, gen, flush_buf):
                     pairs=pairs, bytes=nbytes, bound_ms=bms, bound_by=by,
                     library_ms=None)
             recs.append(r)
-            print(f"  windowed moments C={C} {H}x{W} D={D} window={win} "
-                  f"{dname}: " + " ".join(
+            print(f"  windowed moments B={B} C={C} {H}x{W} D={D} "
+                  f"window={win} {dname}: " + " ".join(
                       f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                       for k, v in r.items()
                       if k not in ("shape", "dtype", "window")), flush=True)
@@ -795,8 +1051,10 @@ def main():
         parity_train = kernel_parity(torch, spamat, kwarp, gen, flush_buf,
                                      TRAIN_STAGES, TRAIN_B)
         windowed = windowed_parity(torch, spamat, gen, flush_buf)
+        windowed_train = windowed_parity(torch, spamat, gen, flush_buf,
+                                         TRAIN_WINDOWED_STAGES, TRAIN_B)
     phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
-          windowed_shapes=len(WINDOWED_STAGES),
+          windowed_shapes=len(WINDOWED_STAGES) + len(TRAIN_WINDOWED_STAGES),
           dtypes=2, timing_floor_ms=f"{floor_ms:.4g}",
           timing_floor_no_flush_ms=f"{floor_no_flush_ms:.4g}",
           **{k: f"{v:.3g}" for k, v in extra.items()})
@@ -806,7 +1064,7 @@ def main():
     with torch.no_grad():
         bwd = backward_parity(torch, spamat, gen, flush_buf)
     phase("backward_parity", t0, shapes=len(TRAIN_STAGES), dtypes=2,
-          windowed=1, adversarial=1, split_rows=len(SPLIT_ROW_STAGES), **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
+          windowed=1 + len(TRAIN_WINDOWED_STAGES), adversarial=1, split_rows=len(SPLIT_ROW_STAGES), **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
                          for k, v in bwd.items()})
 
     # -- 4. load
@@ -903,9 +1161,33 @@ def main():
           loss=",".join(f"{x:.4f}" for x in train["losses"]),
           plain_loss_rel=f"{train['plain_loss_rel']:.3g}",
           plain_grad_cos=f"{train['plain_grad_cos']:.6f}",
+          plain_matching_grad_cos=f"{train['plain_matching_grad_cos']:.6f}",
           planted_fault_grad_cos=",".join(
-              f"{k}:{v['grad_cos']:.4g}"
+              f"{k}:{v['grad_cos']:.4g}/{v['matching_grad_cos']:.4g}"
               for k, v in train["planted_faults"].items()))
+
+    # -- 6b. ckpt_detail_r5's recipe trained: s2d, window, learned detail
+    t0 = time.perf_counter()
+    train_s2d = train_s2d_phase(torch, counters)
+    torch.cuda.empty_cache()
+    ts = train_s2d
+    phase("train_s2d", t0, checkpoint="runs/ckpt_detail_r5",
+          steps=TRAIN_S2D_STEPS, batch=b, size=f"{h}x{w}", max_disp=d,
+          dtype=dt, windows=",".join(map(str, WINDOWS)),
+          step_ms=",".join(f"{x:.2f}" for x in ts["step_ms"]),
+          warmup_ms=f"{ts['warmup_ms']:.1f}",
+          peak_mem_mb=f"{ts['peak_mem_mb']:.1f}",
+          launches=json.dumps(ts["launches"]),
+          loss=",".join(f"{x:.4f}" for x in ts["losses"]),
+          plain_loss_rel=f"{ts['plain_loss_rel']:.3g}",
+          plain_grad_cos=f"{ts['plain_grad_cos']:.7f}",
+          plain_matching_grad_cos=f"{ts['plain_matching_grad_cos']:.7f}",
+          planted_faults=",".join(
+              f"{k}:{v['grad_cos']:.5g}/{v['matching_grad_cos']:.5g}"
+              f"{':rejected' if v['rejected'] else ':passed'}"
+              for k, v in ts["planted_faults"].items()),
+          resume_bit_exact=ts["resume_bit_exact"],
+          params_npz_arrays=ts["params_npz_arrays"])
 
     # -- 7. the s2d model with learned masks and windowed matching, served
     t0 = time.perf_counter()
@@ -930,11 +1212,12 @@ def main():
              for k, r in evals.items()},
           faithful_sparse_contribution_epe=f"{evals['ckpt_faithful']['sparse_contribution_epe']:.4g}")
 
-    # -- 9. the kernels line: per kernel, the launches of both main paths'
-    # runs; times summed over the three fine-stage shapes of its main path
+    # -- 9. the kernels line: per kernel, the launches of each path's run;
+    # times summed over the three fine-stage shapes of its main path
     # (serving, one 540x972 request, for the forward kernels; a training
     # batch for the backward ones), bf16, with the forward kernels' times
-    # at the training shapes beside them
+    # at the training shapes beside them.  The windowed modes are entries
+    # of their own, with the launches of the paths that run them.
     sources = {"spamat_moments": ("decnet_tpu_torch/csrc/spamat_moments.cu",
                                   "decnet_tpu/ops/pallas/spamat.py:80"),
                "warp": ("decnet_tpu_torch/csrc/warp.cu",
@@ -955,10 +1238,13 @@ def main():
                 "library_ms": None if None in lib else sum(lib)}
 
     kernels = []
-    for name, recs in list(parity.items()) + list(bwd.items()):
+    full_band = [(n, r) for n, r in bwd.items() if not n.endswith("windowed")]
+    for name, recs in list(parity.items()) + full_band:
         by_path = {"train": train["launches"][name]}
         if name in launches:
             by_path = {"serve": launches[name], **by_path}
+        if name == "warp":
+            by_path["train_s2d"] = train_s2d["launches"][name]
         k = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1],
              "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -970,17 +1256,32 @@ def main():
                 r["max_abs_err"] for r in parity_train[name]))
         kernels.append(k)
     # the windowed mode of the moments kernel, at the s2d detail path's
-    # shapes: its launches on that path (one request each) and in the evals
+    # shapes: its launches on that path (one request each), in the evals
+    # and in the s2d training steps (times at those shapes beside)
     by_path = {"serve_s2d": s2d["launches"]["spamat_moments"],
                "eval_ckpt_detail_r5":
-                   evals["ckpt_detail_r5"]["launches"]["spamat_moments"]}
+                   evals["ckpt_detail_r5"]["launches"]["spamat_moments"],
+               "train_s2d": train_s2d["launches"]["spamat_moments"]}
     kernels.append({"name": "spamat_moments_windowed", "route": "cuda",
                     "source": sources["spamat_moments"][0],
                     "replaces": sources["spamat_moments"][1],
                     "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
-                    "max_abs_err": max(r["max_abs_err"] for r in windowed),
-                    **summed(windowed)})
+                    "max_abs_err": max(r["max_abs_err"]
+                                       for r in windowed + windowed_train),
+                    **summed(windowed),
+                    "train_shapes": summed(windowed_train)})
+    # the windowed backward kernels, at the s2d training step's shapes
+    for name in ("spamat_dref", "spamat_dtar"):
+        recs = bwd[f"{name}_windowed"]
+        by_path = {"train_s2d": train_s2d["launches"][name]}
+        kernels.append({"name": f"{name}_windowed", "route": "cuda",
+                        "source": sources[name][0],
+                        "replaces": sources[name][1],
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
+                        "max_abs_err": max(r["max_abs_err"] for r in recs),
+                        **summed(recs)})
     torch.cuda.synchronize()
     if args.out:
         with open(args.out, "w") as f:
@@ -990,7 +1291,9 @@ def main():
                        "parity": parity,
                        "parity_extra": extra, "parity_train": parity_train,
                        "backward": bwd, "train": train,
-                       "windowed": windowed, "serve_s2d": s2d,
+                       "windowed": windowed,
+                       "windowed_train": windowed_train,
+                       "train_s2d": train_s2d, "serve_s2d": s2d,
                        "eval": evals,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,

@@ -4,8 +4,10 @@
 warm-up and then three seeded synthetic 540x972 requests through
 `request_masks` and `predict`.
 --mode train: prepares the train CLI's run from the checkpoint and its
-config.json (batch 8 of 162x486 crops of the on-device stream), takes one
-warm-up step and then three steps.
+config.json (any committed one: the faithful, s2d, window and detail
+recipes; batch 8 of 162x486 crops of the on-device stream), takes one
+warm-up step and then three steps (its checkpoint directory, under the
+build directory, is never written, so nothing is resumed).
 The measured part runs under torch.profiler; printed are the wall time per
 request (step), the device time of the top kernels, the device's busy
 share of the window, and one JSON summary line.  The device-time sums come
@@ -28,6 +30,7 @@ from decnet_tpu_torch.cli import train as train_cli
 from decnet_tpu_torch.cli.demo import predict, request_masks
 from decnet_tpu_torch.data.synthetic import synthetic_pair
 from decnet_tpu_torch.device import resolve_device
+from decnet_tpu_torch.ops.kernels.build import BUILD_DIR
 from decnet_tpu_torch.weights import load_checkpoint
 
 SIZE = (540, 972, 216)      # SceneFlow's 540x960 padded to x27, max_disp
@@ -74,6 +77,7 @@ def _train_work(resume, dev):
     """(warm-up, measured work, label) of training steps."""
     run = train_cli.prepare(["--config", os.path.join(resume, "config.json"),
                              "--dataset", "synthetic", "--init_from", resume,
+                             "--ckpt_dir", str(BUILD_DIR / "profile_ckpt"),
                              "--device", str(dev)])
     batches = [next(run.stream) for _ in range(REQUESTS + 1)]
     t = run.cfg.train

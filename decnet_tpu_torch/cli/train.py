@@ -1,13 +1,19 @@
 """Training CLI for the on-device synthetic stream — the twin of
 decnet_tpu/cli/train.py for `data.on_device` with `--dataset synthetic`.
 
+Any committed checkpoint's recipe trains: the faithful model, learned
+detail heads (`use_detail`, whose mask loss adds `loss.alpha` times its
+value), the s2d full-resolution stage (`s2d_fine`) and the windowed
+matching (`match_window`), under any of the five loss types.
 Per step: a batch made on the device (`data/device_synth.py`), the forward
 with batch-statistic batch norm (running statistics from
 `train.freeze_bn_after` on, or throughout with `train.freeze_bn`), the
-multi-stage loss, backward, the global-norm clip and Adam at the scheduled
-rate.  Logs the JAX CLI's JSON lines every `train.log_every` steps (and
-eval lines with --eval_split), writes `<ckpt_dir>/params.npz` and
-`config.json` every `train.ckpt_every` steps and at the end.
+loss, backward, the global-norm clip and Adam at the scheduled rate.  Logs
+the JAX CLI's JSON lines every `train.log_every` steps (and eval lines
+with --eval_split).  Every `train.ckpt_every` steps and at the end it saves
+a resumable checkpoint, `<ckpt_dir>/<step>/` (the newest
+`train.keep_ckpts` kept), and refreshes `<ckpt_dir>/params.npz` and
+`config.json`.
 
 Usage:
   python -m decnet_tpu_torch.cli.train --config runs/ckpt_faithful/config.json \
@@ -15,16 +21,19 @@ Usage:
       [--init_from runs/ckpt_faithful] [--set train.batch_size=4 ...] \
       [--eval_split val --eval_every 50 --eval_batches 4] [--device cuda]
 
---init_from warm-starts from a params.npz directory, as the JAX CLI's
+A --ckpt_dir that holds a checkpoint is resumed from its newest step:
+parameters, BN statistics, optimizer state and step, and the stream goes
+on at that step's batch.  --init_from then does nothing; on a fresh run it
+warm-starts from a params.npz directory, as the JAX CLI's
 `restore_partial` does from an Orbax directory: every parameter and BN
 statistic whose key and shape match is copied, the rest keep their fresh
-initialisation, and the optimizer and step start fresh.  Orbax resume of
-the optimizer state is not ported.
+initialisation, and the optimizer and step start fresh.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -37,9 +46,10 @@ from decnet_tpu_torch.config import Config, load_full_config
 from decnet_tpu_torch.data.device_synth import device_batch_stream
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.models.decnet import DecNet
-from decnet_tpu_torch.train.checkpoint import save_params
-from decnet_tpu_torch.train.step import (TrainState, create_train_state,
-                                         eval_step, train_step)
+from decnet_tpu_torch.train.checkpoint import CheckpointManager
+from decnet_tpu_torch.train.step import (TrainState, check_loss_type,
+                                         create_train_state, eval_step,
+                                         train_step)
 from decnet_tpu_torch.weights import warm_start
 
 EVAL_KEYS = ("epe", "d1", "epe_up0", "d1_up0")
@@ -75,14 +85,7 @@ def build_config(args: argparse.Namespace) -> Config:
         raise NotImplementedError(
             f"only the on-device synthetic stream is ported (got --dataset "
             f"{args.dataset!r}, data.on_device={cfg.data.on_device})")
-    m = cfg.model
-    if m.use_detail or m.s2d_fine or m.match_window:
-        raise NotImplementedError(
-            "training with use_detail, s2d_fine or match_window is not "
-            "ported yet (ROADMAP.md section 1, item 1: the detail mask loss, "
-            "the alpha term and the s2d/window train step); got "
-            f"use_detail={m.use_detail}, s2d_fine={m.s2d_fine}, "
-            f"match_window={m.match_window}")
+    check_loss_type(cfg)
     if args.ckpt_dir:
         cfg.train.ckpt_dir = args.ckpt_dir
     if args.steps:
@@ -93,12 +96,13 @@ def build_config(args: argparse.Namespace) -> Config:
 @dataclasses.dataclass
 class Run:
     """What `prepare` builds: the config, the train state, the batch
-    stream and the fixed eval batches."""
+    stream, the fixed eval batches and the checkpoint manager."""
     cfg: Config
     state: TrainState
     stream: Iterator[Dict]
     eval_batches: Optional[List[Dict]]
     eval_every: int
+    ckpt: CheckpointManager
 
     def freeze_bn(self) -> bool:
         """Whether the next step normalises with the running statistics."""
@@ -120,20 +124,30 @@ def prepare(argv=None) -> Run:
     args = parse_args(argv)
     cfg = build_config(args)
     dev = resolve_device(args.device)
-    state = create_train_state(DecNet(cfg.model).to(dev), cfg)
-    if args.init_from:
+    # the fresh initialisation is drawn from train.seed, as JAX's is
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.train.seed)
+        model = DecNet(cfg.model)
+    state = create_train_state(model.to(dev), cfg)
+    ckpt = CheckpointManager(cfg.train.ckpt_dir, keep=cfg.train.keep_ckpts)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"Restored checkpoint step {state.step} from "
+              f"{cfg.train.ckpt_dir}", flush=True)
+    if args.init_from and state.step == 0:
         warm_start(state.model, os.path.join(args.init_from, "params.npz"))
     gen_kw = dict(batch=cfg.train.batch_size, h=cfg.train.crop_h,
                   w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
                   scale=cfg.model.down_scale, levels=cfg.model.num_stage - 1,
                   thold=cfg.data.mask_thold, dtype=cfg.model.torch_dtype,
                   device=dev, variant=cfg.data.variant)
-    stream = device_batch_stream(cfg.train.seed, **gen_kw)
+    stream = device_batch_stream(cfg.train.seed, start_step=state.step,
+                                 **gen_kw)
     eval_batches = None
     if args.eval_split:
         val = device_batch_stream(cfg.train.seed, val=True, **gen_kw)
         eval_batches = [next(val) for _ in range(args.eval_batches)]
-    return Run(cfg, state, stream, eval_batches, args.eval_every)
+    return Run(cfg, state, stream, eval_batches, args.eval_every, ckpt)
 
 
 def run(r: Run) -> None:
@@ -142,7 +156,8 @@ def run(r: Run) -> None:
           f"(device {next(r.state.model.parameters()).device}, "
           f"data=on-device)", flush=True)
     t_log = time.perf_counter()
-    for batch in r.stream:
+    for batch in itertools.islice(r.stream,
+                                  max(t.total_steps - r.state.step, 0)):
         logs = r.step(batch)
         step = r.state.step
         if step % t.log_every == 0:
@@ -164,11 +179,10 @@ def run(r: Run) -> None:
                               "eval_d1_up0": round(m["d1_up0"], 3)}),
                   flush=True)
         if step % t.ckpt_every == 0:
-            save_params(t.ckpt_dir, r.state.model, cfg)
+            r.ckpt.save(r.state, cfg)
             print(f"saved checkpoint @ {step}", flush=True)
-        if step >= t.total_steps:
-            break
-    save_params(t.ckpt_dir, r.state.model, cfg)
+    if r.ckpt.latest_step() != r.state.step:
+        r.ckpt.save(r.state, cfg)
     print(f"final checkpoint @ {r.state.step}", flush=True)
 
 

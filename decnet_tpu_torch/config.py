@@ -28,12 +28,12 @@ THOLD_MODES = ("fixed", "quantile")
 VARIANTS = ("default", "stressor", "legacy")
 
 
-def _refuse(section: str, obj, unsupported: dict):
+def _refuse(section: str, obj, unsupported: dict, where: str = ""):
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"{section} values not ported yet: "
-            f"{ {k: getattr(obj, k) for k in bad} }")
+            f"{ {k: getattr(obj, k) for k in bad} }" + where)
 
 
 @dataclasses.dataclass
@@ -80,11 +80,14 @@ class ModelConfig:
             raise ValueError(f"thold_mode must be one of {THOLD_MODES}, "
                              f"got {self.thold_mode!r}")
         _refuse("ModelConfig", self, {
+            "s2d_stages": self.s2d_fine and self.s2d_stages != 1},
+            " (ROADMAP.md section 1, item 1: the s2d form of the 1/3-res "
+            "stage)")
+        _refuse("ModelConfig", self, {
             "num_stage": self.num_stage != 4,
             "skip_stage_id": self.skip_stage_id < self.num_stage,
             "cost_func": self.cost_func != "cor",
             "norm": self.norm != "bn",
-            "s2d_stages": self.s2d_fine and self.s2d_stages != 1,
             "dtype": self.dtype not in DTYPES,
         })
 
@@ -99,14 +102,13 @@ class LossConfig:
     weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
     down_func_name: str = "bicubic"     # GT pyramid: bilinear|bicubic|max|min
     if_overmask: bool = False           # zero the sky rows (<108/down)
-    alpha: float = 0.1                  # detail-mask loss weight (unused)
+    alpha: float = 0.1                  # detail-mask loss weight
     sparse_term_scale: float = 1.0      # multiplies 0.2/(10+3.75*stage)
     binary_thold: Optional[float] = None
     sparse_cand_mask: bool = True       # sparse term only where cand > 0
 
     def __post_init__(self):
         _refuse("LossConfig", self, {
-            "loss_type": self.loss_type != "multi_stage_regression_uploss",
             "down_func_name": self.down_func_name not in (
                 "bilinear", "bicubic", "max", "min")})
 
@@ -125,7 +127,7 @@ class TrainConfig:
     ckpt_dir: str = "checkpoints"
     ckpt_every: int = 2000
     log_every: int = 50
-    keep_ckpts: int = 5                 # read by the JAX package's Orbax only
+    keep_ckpts: int = 5                 # resumable checkpoints kept, newest
     freeze_bn: bool = False             # every step normalises with running stats
     freeze_bn_after: int = 0            # from this step on, as freeze_bn; 0: never
     packed_exec: bool = False
@@ -134,7 +136,8 @@ class TrainConfig:
     def __post_init__(self):
         if self.lr_schedule not in ("cosine", "constant", "piecewise"):
             raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
-        _refuse("TrainConfig", self, {"packed_exec": self.packed_exec})
+        _refuse("TrainConfig", self, {"packed_exec": self.packed_exec},
+                " (ROADMAP.md section 1, item 2: the weight repacking)")
 
 
 @dataclasses.dataclass

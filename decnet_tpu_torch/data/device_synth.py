@@ -287,12 +287,14 @@ def device_batch_stream(seed: int, *, batch: int, h: int, w: int,
                         thold: float = 0.3,
                         dtype: torch.dtype = torch.float32,
                         val: bool = False, device="cuda",
-                        variant: str = "default") -> Iterator[Dict]:
+                        variant: str = "default",
+                        start_step: int = 0) -> Iterator[Dict]:
     """Infinite iterator of batches of `variant`, batch N drawn from a
     generator seeded by (seed, N), so a stream regenerates its batches.
-    `val=True` is a disjoint stream."""
+    `val=True` is a disjoint stream.  `start_step` k starts at batch k: a
+    resumed run sees the batches an unbroken one would."""
     gen = torch.Generator(device=device)
-    step = 0
+    step = start_step
     while True:
         gen.manual_seed(step_seed(seed, step, val))
         yield make_device_batch(gen, batch=batch, h=h, w=w,

@@ -1,9 +1,11 @@
-"""Train and eval steps — the port of decnet_tpu/train/step.py:25-150 for
-the multi_stage_regression_uploss path.
+"""Train and eval steps — the port of decnet_tpu/train/step.py:25-150, with
+its loss dispatcher for every loss type and the detail mask term.
 
 A batch is a dict: left/right (B,3,H,W) normalised images, gt (B,H,W)
 (0 = invalid), left_masks/right_masks lists of per-fine-stage (B,h,w)
-binary detail masks, coarsest first."""
+binary detail masks, coarsest first: the matching's masks when the model
+has no detail heads, the heads' supervision targets when it has them (the
+heads' own binarised maps then feed the matching)."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,6 +38,62 @@ def create_train_state(model: DecNet, cfg: Config) -> TrainState:
                       state_lib.make_schedule(cfg.train))
 
 
+LOSS_TYPES = ("multi_stage_regression_uploss", "chamfer", "lr_consistency",
+              "multi_stage_regression_upsampleloss",
+              "multi_stage_regression_upmaskloss")
+UPMASK = "multi_stage_regression_upmaskloss"
+
+
+def check_loss_type(cfg: Config) -> str:
+    """The configured loss type, lower-cased, after JAX's asserts: a known
+    type; upmaskloss supervises learned detail heads; lr_consistency reads
+    per-stage full-resolution features, so not the s2d form."""
+    loss_type = cfg.loss.loss_type.lower()
+    if loss_type not in LOSS_TYPES:
+        raise ValueError(f"No such loss: {cfg.loss.loss_type}")
+    if loss_type == UPMASK and not cfg.model.use_detail:
+        raise ValueError("upmaskloss supervises the learned detail heads "
+                         "(use_detail=1)")
+    if loss_type == "lr_consistency" and cfg.model.s2d_fine:
+        raise ValueError("lr_consistency reads per-stage NCHW feature maps "
+                         "(not with s2d_fine)")
+    return loss_type
+
+
+def compute_loss(out: Dict, batch: Dict, cfg: Config
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss dispatcher: the configured loss type's total and terms;
+    with learned detail heads and masks in the batch (any type but
+    upmaskloss), plus alpha times the detail mask loss and its terms."""
+    mcfg, lcfg = cfg.model, cfg.loss
+    loss_type = check_loss_type(cfg)
+    gt = batch["gt"]
+    stages = (lcfg, mcfg.num_stage, mcfg.down_scale, mcfg.max_disp)
+    if loss_type == "multi_stage_regression_uploss":
+        total, logs = loss_lib.multi_stage_uploss(out, gt, *stages,
+                                                  mcfg.skip_stage_id)
+    elif loss_type == "chamfer":
+        total, logs = loss_lib.multi_stage_chamfer(out, gt, *stages,
+                                                   mcfg.skip_stage_id)
+    elif loss_type == "multi_stage_regression_upsampleloss":
+        total, logs = loss_lib.upsample_loss(out, gt, *stages)
+    elif loss_type == "lr_consistency":
+        total = loss_lib.lr_consistency_loss(
+            out["preds"], out["left_feats"], out["right_feats"],
+            lcfg.weights)
+        logs = {"lr_consistency": total}
+    else:
+        return loss_lib.detail_mask_loss(
+            out, batch["left_masks"], batch["right_masks"], lcfg.weights,
+            binary_thold=lcfg.binary_thold)
+    if mcfg.use_detail and batch.get("left_masks") is not None:
+        mloss, mlogs = loss_lib.detail_mask_loss(
+            out, batch["left_masks"], batch["right_masks"], lcfg.weights)
+        total = total + lcfg.alpha * mloss
+        logs.update(mlogs)
+    return total, logs
+
+
 def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
                    freeze_bn: bool = False
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
@@ -43,16 +101,14 @@ def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
     freeze_bn the running stats as eval uses them), the loss, backward.
     Returns the logs (the loss terms and "total") and every parameter's
     gradient, zeros for a parameter the loss does not reach."""
-    mcfg = cfg.model
     model.train(not freeze_bn)
     for p in model.parameters():
         p.grad = None
-    out = model(batch["left"], batch["right"], batch["left_masks"],
-                batch["right_masks"])
-    total, logs = loss_lib.multi_stage_uploss(
-        out, batch["gt"], cfg.loss, mcfg.num_stage, mcfg.down_scale,
-        mcfg.max_disp, mcfg.skip_stage_id)
-    total.backward()
+    out = model(batch["left"], batch["right"], batch.get("left_masks"),
+                batch.get("right_masks"))
+    total, logs = compute_loss(out, batch, cfg)
+    if total.requires_grad:
+        total.backward()
     logs = {k: v.detach() for k, v in logs.items()}
     logs["total"] = total.detach()
     grads = []

@@ -10,6 +10,7 @@ EPEs are means of such disparities' errors, so 1e-3 px too, and its D1
 pixels of a 54x81 image (the smallest a report here averages over)."""
 import json
 import os
+import re
 
 import numpy as np
 import jax
@@ -224,7 +225,21 @@ def test_demo_serves_learned_detail_checkpoint(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["ckpt_detail_r5", "ckpt_flagship",
                                   "ckpt_stressor_r5"])
-def test_train_cli_refuses_untrainable_configs(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.prepare(["--config", os.path.join(ckpt(name), "config.json"),
-                      "--dataset", "synthetic", "--device", "cpu"])
+def test_train_cli_refuses_untrainable_configs(name, tmp_path, capsys):
+    """The s2d, window and detail recipes build a training run, warm
+    started from their own checkpoint with every tensor restored; what
+    stays refused is s2d_stages >= 2, naming its ROADMAP item."""
+    argv = ["--config", os.path.join(ckpt(name), "config.json"),
+            "--dataset", "synthetic", "--device", "cpu", "--ckpt_dir",
+            str(tmp_path)]
+    run = tcli.prepare(argv + ["--init_from", ckpt(name)])
+    cfg = run.cfg.model
+    assert cfg.s2d_fine and run.state.step == 0
+    assert (cfg.use_detail, cfg.match_window > 0) == {
+        "ckpt_detail_r5": (True, True), "ckpt_flagship": (False, True),
+        "ckpt_stressor_r5": (False, False)}[name]
+    assert re.search(r"warm-start params: \d+ restored, 0 fresh",
+                     capsys.readouterr().out)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, "
+                       "item 1"):
+        tcli.prepare(argv + ["--set", "model.s2d_stages=2"])

@@ -309,10 +309,12 @@ def test_full_config_loader_and_overrides():
     assert cfg.model.grad_method == "detach" and cfg.data.on_device
     # what the JAX package reads back from the port's dict
     JaxConfig.from_dict(cfg.to_dict())
-    for bad in ("loss.loss_type=chamfer", "train.packed_exec=1",
-                "mesh.tile=2"):
+    for bad in ("train.packed_exec=1", "mesh.tile=2"):
         with pytest.raises(NotImplementedError):
             tconfig.load_full_config(CKPT, [bad])
+    # every loss type is ported (tests/test_torch_losses.py)
+    assert tconfig.load_full_config(
+        CKPT, ["loss.loss_type=chamfer"]).loss.loss_type == "chamfer"
     # the three stream variants are ported; any other name is an error
     for v in ("stressor", "legacy"):
         assert tconfig.load_full_config(
