@@ -26,15 +26,28 @@ the JAX reports' protocol (540x972, max_disp 216, 24 batches of 4, seed
 37, bf16), each held to its JAX accuracy anchor within a band fixed in
 advance.  The windowed moments are held against their plain version at
 that path's shapes too, and the windowed moments, dRef and dTar at the
-s2d training step's.
+s2d training step's.  The moments and the warp are also held at the
+benchmark suites' shapes (KITTI served, Middlebury-H, whose forward splits
+rows, and Middlebury-F), dRef and dTar at KITTI's training crop.
+Then it makes the suites' files in a temporary directory (SceneFlow packs
+of the eval phase's 96 scenes, KITTI packs, Middlebury-H pickles of two
+ndisp) and drives the data path: `cli.eval` of ckpt_faithful on each suite
+(SceneFlow held to the faithful anchor's band, KITTI and Middlebury kernel
+path against plain path, submission PNGs read back), one Middlebury-F
+forward for its time and memory, `cli.train` from the packs (the step
+checks with planted faults, the host's wait for batches), from KITTI and
+from the host synthetic dataset, ckpt_faithful in the reference's `.pkl`
+form served bit-equal through `--resume`, and `cli.demo` on PNG scenes
+with both mask sources; the directory is removed at the end.
 One line is printed per phase as it ends; the line before the last is a
 JSON object describing every kernel, the last line is the device record.
 Any failed check ends the run with a non-zero exit.
 
 Usage:  python3 chip_smoke.py [--seed 0] [--out FILE.json]
 Needs one CUDA card; without one it exits non-zero and prints no result.
-It writes only the kernels' build directory, a parameter snapshot under
-it (and --out when given).
+It writes the kernels' build directory, a parameter snapshot under it,
+--out when given, and the suites' files in a temporary directory
+(~1.5 GB, removed at the end).
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -159,6 +173,54 @@ ANCHORS = (
 )
 BAND_SE, BAND_REL = 3.0, 0.02
 SPIN_CYCLES = 2_000_000   # ~1 ms of device time at H100 clocks
+
+
+def fine_stages(H, W, D):
+    """(C, H, W, D) of the three fine stages of a padded H x W input."""
+    return [(72, H // 9, W // 9, D // 9), (24, H // 3, W // 3, D // 3),
+            (8, H, W, D)]
+
+
+# The benchmark suites' files, made at run time in a temporary directory
+# from the port's synthetic streams.  SceneFlow: the eval phase's 96
+# legacy-stream scenes (seed 37, 540x972) as packs (~1.45 GB), and the
+# first 24 of them less their 12 leftmost columns, SceneFlow's 540x960,
+# which the datasets pad back with 12 zero columns (the faithful
+# checkpoint, trained on unpadded scenes, reads EPE ~7.8 on those: the
+# band alone, with the unpadded scenes' own masks, takes a scene from ~3.0
+# to ~7.6 px on the CPU), for training and the demo; KITTI: 375x1242
+# (padded to 378x1242), object masks in the 8th channel, its train_eval
+# split served at B = 1 and its training crop 270x513 at B = 8;
+# Middlebury-H: two 999x1485 scenes of ndisp 289 and 150 (forwards at 297
+# and 162); Middlebury-F: one forward at 1998x2970, ndisp 810, for its
+# time and peak memory.
+SF_SCENES, SF_SHAPE, SF_CUT = 96, (540, 960), 12
+SF_CUT_SCENES = 24
+SF_BATCH = 4
+KITTI_SHAPE, KITTI_SCENES = (375, 1242), 8
+KITTI_CROP = (270, 513)
+MID_H_SHAPE, MID_H_NDISP = (999, 1485), (289, 150)
+MID_F_SHAPE, MID_F_NDISP = (1998, 2970), 810
+SUITE_STAGES = {"kitti": fine_stages(378, 1242, 216),
+                "middlebury_h": fine_stages(999, 1485, 297),
+                "middlebury_f": fine_stages(1998, 2970, 810)}
+KITTI_TRAIN_STAGES = fine_stages(*KITTI_CROP, 216)
+SUITE_BYTES = 2.1e9       # the packs' ~1.8 GB and the rest, on disk
+# The SceneFlow-pack eval of ckpt_faithful: its scenes are the eval
+# phase's, but `cli.eval` scores each sample over 0 < gt < its ndisp, 192
+# for SceneFlow (the reference's eval), where the report pools a batch
+# over gt < 216.  The faithful legacy anchor's band (3.0747 +- 3 SE + 2%)
+# is printed beside it; what is held is the like-for-like reading: the
+# same checkpoint on the same stream batches, scored as `cli.eval` scores
+# them.  The inputs are equal (the packs reproduce the stream's views, gt
+# and masks bit for bit on the CPU), so only cuDNN's order and the host
+# masks' arithmetic separate the two: mean EPE within 0.02 px, every
+# batch within 0.05.
+SF_ANCHOR = ANCHORS[0]
+SF_STREAM_TOL, SF_BATCH_TOL = 0.02, 0.05
+SCENEFLOW_NDISP = 192
+TRAIN_DISK_STEPS = 5      # timed steps from the packs, after a warm-up
+SUBMISSION_TOL = 1.0 / 256   # px: a uint16 PNG holds floor(256 d)
 
 
 def phase(name, t0, **info):
@@ -275,6 +337,8 @@ def kernel_parity(torch, spamat, kwarp, gen, flush_buf, stages=None, B=1):
             r = {"shape": [C, H, W, D], "dtype": dname,
                  "max_abs_err": abs_err, "max_rel_err": rel_err}
             if dt == torch.bfloat16:
+                mp = spamat.moments_plan(B, C, H, W, D, ref.element_size())
+                r["plan"] = f"segs={mp.segs},tile={mp.tile},lanes={mp.lanes}"
                 pairs = candidate_pairs(torch, rm, tm, D)
                 nbytes = (2 * ref.numel() * ref.element_size()
                           + 2 * rm.numel() * 4 + 4 * rm.numel() * 4)
@@ -305,6 +369,8 @@ def kernel_parity(torch, spamat, kwarp, gen, flush_buf, stages=None, B=1):
             r = {"shape": [C, H, W, D], "dtype": dname,
                  "max_abs_err": float(d.max())}
             if dt == torch.bfloat16:
+                wp = kwarp.warp_plan(B, C, H, W, ref.element_size())
+                r["plan"] = f"groups={wp.groups},cg={wp.cg}"
                 # the library yardstick: grid_sample over the same warp
                 # (x = (w - d) W/(W-1) - 0.5 is gx = 2 (w - d)/(W-1) - 1)
                 gx = 2.0 * (torch.arange(W, device=dev) - disp) / (W - 1) - 1
@@ -345,7 +411,7 @@ def backward_residuals(torch, spamat, ref, tar, rm, tm, D, center=None,
             torch.where(refm, m, 0.0))
 
 
-def backward_parity(torch, spamat, gen, flush_buf):
+def backward_parity(torch, spamat, gen, flush_buf, cases=None, suffix=""):
     """The dRef and dTar kernels against `spamat_backward_plain` at the
     training stage shapes (B = 8), f32 and bf16, once windowed, once
     adversarial: the features of masked-out keys and of inactive queries
@@ -356,19 +422,22 @@ def backward_parity(torch, spamat, gen, flush_buf):
     at B = 8.  Then windowed as the s2d training step runs them: at the
     three training shapes with windows 2 / 4 / 12 around a smooth centre
     (`smooth_center`), f32 and bf16, timed in bf16 (records under
-    "<name>_windowed").  Returns per-kernel records."""
-    rec = {"spamat_dref": [], "spamat_dtar": [], "spamat_dref_windowed": [],
-           "spamat_dtar_windowed": []}
+    "<name>_windowed").  Other `cases` (B, (C, H, W, D), dtype, window,
+    adversarial, smooth centre) instead: records under "<name><suffix>".
+    Returns per-kernel records."""
     dts = (torch.float32, torch.bfloat16)
-    # (B, shape, dtype, window, adversarial, smooth centre)
-    cases = [(TRAIN_B, shape, dt, 0, False, False) for shape in TRAIN_STAGES
-             for dt in dts]
-    cases.append((TRAIN_B, TRAIN_STAGES[1], torch.float32, 6, False, False))
-    cases.append((TRAIN_B, TRAIN_STAGES[0], torch.bfloat16, 0, True, False))
-    cases += [(B, shape, dt, 0, False, False)
-              for B, shape in SPLIT_ROW_STAGES for dt in dts]
-    cases += [(TRAIN_B, (C, H, W, D), dt, win, False, True)
-              for C, H, W, D, win in TRAIN_WINDOWED_STAGES for dt in dts]
+    if cases is None:
+        cases = [(TRAIN_B, shape, dt, 0, False, False)
+                 for shape in TRAIN_STAGES for dt in dts]
+        cases.append((TRAIN_B, TRAIN_STAGES[1], torch.float32, 6, False,
+                      False))
+        cases.append((TRAIN_B, TRAIN_STAGES[0], torch.bfloat16, 0, True,
+                      False))
+        cases += [(B, shape, dt, 0, False, False)
+                  for B, shape in SPLIT_ROW_STAGES for dt in dts]
+        cases += [(TRAIN_B, (C, H, W, D), dt, win, False, True)
+                  for C, H, W, D, win in TRAIN_WINDOWED_STAGES for dt in dts]
+    rec = {}
     for B, (C, H, W, D), dt, window, adversarial, smooth in cases:
         rm, tm, feat32, tar32, disp = stage_inputs(torch, gen, B, C, H, W, D)
         if adversarial:
@@ -391,7 +460,7 @@ def backward_parity(torch, spamat, gen, flush_buf):
         torch.cuda.synchronize()
         pairs = candidate_pairs(torch, rm, tm, D, center, window)
         names = (["spamat_dref_windowed", "spamat_dtar_windowed"] if smooth
-                 else ["spamat_dref", "spamat_dtar"])
+                 else [f"spamat_dref{suffix}", f"spamat_dtar{suffix}"])
         for name, gk, gp in zip(names, got, want):
             case = (f"{name} B={B} C={C} H={H} W={W} D={D} {dname} "
                     f"window={window}" + (" adversarial" if adversarial
@@ -408,9 +477,13 @@ def backward_parity(torch, spamat, gen, flush_buf):
             r = {"shape": [B, C, H, W, D], "dtype": dname, "window": window,
                  "adversarial": adversarial, "max_abs_err": err,
                  "rel_err": rel, "max_grad": scale}
+            kname = "spamat_dref" if "dref" in name else "spamat_dtar"
+            plan = getattr(spamat, kname.replace("spamat_", "") + "_plan")(
+                B, C, H, W, D, ref.element_size())
+            r["plan"] = f"segs={plan.segs},tile={plan.tile},lanes={plan.lanes}"
             if (dt == torch.bfloat16 and B == TRAIN_B and not adversarial
                     and (smooth or not window)):
-                kernel = getattr(spamat, name.replace("_windowed", ""))
+                kernel = getattr(spamat, kname)
                 # ref, tar, 4 f32 maps (and the centre) in; one gradient
                 # out; per candidate pair 2C flops for the score, 2C to
                 # accumulate, ~8 more
@@ -426,7 +499,7 @@ def backward_parity(torch, spamat, gen, flush_buf):
                                        flush_buf),
                     bytes=nbytes, flops=flops, pairs=pairs, bound_ms=bms,
                     bound_by=by, library_ms=None)
-            rec[name].append(r)
+            rec.setdefault(name, []).append(r)
             print(f"  {case}: " + " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in r.items()
@@ -987,6 +1060,524 @@ def eval_phase(torch, spamat, kwarp):
     return out
 
 
+@contextlib.contextmanager
+def raw_scenes():
+    """While installed, the synthetic streams' batches are their scenes
+    before normalisation and masks: {"left", "right": (B,3,H,W) in
+    [0, 255] f32, "gt": (B,H,W)}."""
+    from decnet_tpu_torch.data import device_synth
+    real = device_synth.finish_batch
+    device_synth.finish_batch = lambda left, right, disp, *a: {
+        "left": left, "right": right, "gt": disp.float()}
+    try:
+        yield device_synth
+    finally:
+        device_synth.finish_batch = real
+
+
+def scene_arrays(torch, batch):
+    """(B,H,W,7) numpy packs [left | right | gt] of a raw batch."""
+    pack = torch.cat([batch["left"], batch["right"], batch["gt"][:, None]], 1)
+    return pack.permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def write_suites(torch, root):
+    """The suites' files under `root` (see SF_SCENES): returns their
+    dataset roots.  SceneFlow's packs are the eval phase's scenes: the
+    same stream, seed and batches as `cli.report_eval.report` draws."""
+    import pickle
+    import numpy as np
+    free = shutil.disk_usage(root).free
+    if free < SUITE_BYTES:
+        fail(f"datasets_eval: {root} has {free / 1e9:.2f} GB free, the "
+             f"suites' files need {SUITE_BYTES / 1e9:.1f} GB")
+    roots = {k: os.path.join(root, k) for k in (
+        "sceneflow", "sceneflow_960", "kitti", "middlebury")}
+    with raw_scenes() as ds:
+        sf, cut = (os.path.join(roots[k], "test")
+                   for k in ("sceneflow", "sceneflow_960"))
+        os.makedirs(sf)
+        os.makedirs(cut)
+        stream = ds.device_batch_stream(
+            EVAL["seed"], val=True, batch=EVAL["batch"], h=EVAL["h"],
+            w=EVAL["w"], max_disp=EVAL["max_disp"], device=DEV,
+            variant=ANCHORS[0][1])
+        n = 0
+        while n < SF_SCENES:
+            for pack in scene_arrays(torch, next(stream)):
+                np.save(os.path.join(sf, f"{n:04d}.npy"), pack)
+                if n < SF_CUT_SCENES:
+                    np.save(os.path.join(cut, f"{n:04d}.npy"),
+                            np.ascontiguousarray(pack[:, SF_CUT:]))
+                n += 1
+        kt = os.path.join(roots["kitti"], "train")
+        os.makedirs(kt)
+        h, w = KITTI_SHAPE
+        hp = -(-h // 27) * 27
+        stream = ds.device_batch_stream(11, val=True, batch=1, h=hp, w=w,
+                                        max_disp=216, device=DEV)
+        for i in range(KITTI_SCENES):
+            pack = scene_arrays(torch, next(stream))[0, hp - h:]
+            obj = (pack[..., 6:] < 150).astype(np.float32)  # object mask
+            np.save(os.path.join(kt, f"{i:06d}_10.npy"),
+                    np.concatenate([pack, obj], -1))
+        mb = os.path.join(roots["middlebury"], "MiddEval3H_processed",
+                          "trainingH")
+        os.makedirs(mb)
+        h, w = MID_H_SHAPE
+        for i, nd in enumerate(MID_H_NDISP):
+            stream = ds.device_batch_stream(13 + i, val=True, batch=1, h=h,
+                                            w=w, max_disp=-(-nd // 27) * 27,
+                                            device=DEV)
+            pack = scene_arrays(torch, next(stream))[0]
+            with open(os.path.join(mb, f"Scene{nd}.pkl"), "wb") as f:
+                pickle.dump({"ndisp": nd, "im0": pack[..., :3],
+                             "im1": pack[..., 3:6],
+                             "disparity": pack[..., 6]}, f)
+    return roots
+
+
+def count_launches(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def zero_launches(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def check_forward_launches(counters, forwards, where):
+    """3 moments and 3 warps a forward, no backward kernel."""
+    got = count_launches(counters)
+    want = {k: 3 * forwards if k in ("spamat_moments", "warp") else 0
+            for k in counters}
+    if got != want:
+        fail(f"{where}: launches {got} in {forwards} forwards, expected "
+             f"{want}")
+    return got
+
+
+@contextlib.contextmanager
+def recorded_submissions():
+    """Each submission PNG the CLIs write: (path, disparity, ori_h,
+    ori_w), recorded as `data.io.write_submission_png` is called."""
+    from decnet_tpu_torch.data import io as dio
+    real, seen = dio.write_submission_png, []
+
+    def record(path, disp, ori_h=None, ori_w=None):
+        seen.append((path, disp, ori_h, ori_w))
+        return real(path, disp, ori_h, ori_w)
+    dio.write_submission_png = record
+    try:
+        yield seen
+    finally:
+        dio.write_submission_png = real
+
+
+def check_submissions(seen, where):
+    """Each PNG, read back by the port's decoder, holds its disparity
+    (cropped to ori_h x ori_w) within 1/256 px.  Returns the largest
+    error."""
+    import numpy as np
+    from decnet_tpu_torch.data import io as dio
+    worst = 0.0
+    for path, disp, oh, ow in seen:
+        want = np.asarray(disp, np.float32)
+        if oh is not None:
+            want = want[-oh:, -ow:]
+        got = dio.read_png(path).astype(np.float32) / 256.0
+        if got.shape != want.shape:
+            fail(f"{where}: {path} is {got.shape}, the prediction "
+                 f"{want.shape}")
+        err = float(np.abs(got - np.clip(want, 0, 65535 / 256.0)).max())
+        worst = max(worst, err)
+        if not err <= SUBMISSION_TOL:
+            fail(f"{where}: {path} is {err:.4g} px from its prediction")
+    return worst
+
+
+def kernel_vs_plain_batch(torch, model, ds, index, counters, where):
+    """One sample of `ds` through the eval CLI's hand-off at its bucketed
+    max_disp, kernel path against plain path: (mean |delta|, max_disp,
+    the kernel path's launches)."""
+    from decnet_tpu_torch.cli.eval import batch_max_disp
+    from decnet_tpu_torch.data.loader import collate, to_device
+    b = to_device(collate([ds[index]]), DEV)
+    nd = batch_max_disp(b["n_disp"])
+    args = (b["left"], b["right"], b["left_masks"], b["right_masks"])
+    with torch.no_grad():
+        zero_launches(counters)
+        got = model(*args, max_disp=nd)["preds"][-1]
+        launches = check_forward_launches(counters, 1, where)
+        model.use_kernels = False
+        want = model(*args, max_disp=nd)["preds"][-1]
+        model.use_kernels = True
+    if count_launches(counters) != launches:
+        fail(f"{where}: the plain path launched a kernel")
+    if not torch.isfinite(got).all():
+        fail(f"{where}: non-finite prediction")
+    delta = float((got - want).abs().mean())
+    if not delta <= SERVE_MEAN_TOL:
+        fail(f"{where} kernel vs plain path: mean |delta disp| {delta:.4g} "
+             f"px > {SERVE_MEAN_TOL}")
+    return delta, nd, launches
+
+
+def stream_cli_epe(torch, model, batches):
+    """Per batch, the mean over its samples of each sample's EPE over
+    0 < gt < 192 (SceneFlow's ndisp, as `cli.eval` scores it) of `model`
+    on the eval phase's stream batches."""
+    import numpy as np
+    from decnet_tpu_torch.cli.eval import batch_max_disp
+    from decnet_tpu_torch.data.device_synth import device_batch_stream
+    from decnet_tpu_torch.train.metrics import per_sample_epe_d1
+    nd = batch_max_disp([SCENEFLOW_NDISP])
+    stream = device_batch_stream(
+        EVAL["seed"], val=True, batch=EVAL["batch"], h=EVAL["h"],
+        w=EVAL["w"], max_disp=EVAL["max_disp"], dtype=model.cfg.torch_dtype,
+        device=DEV, variant=SF_ANCHOR[1])
+    out = []
+    for _ in range(batches):
+        b = next(stream)
+        with torch.no_grad():
+            pred = model(b["left"], b["right"], b["left_masks"],
+                         b["right_masks"], max_disp=nd)["preds"][-1]
+        epes, _ = per_sample_epe_d1(pred.float(), b["gt"],
+                                    [SCENEFLOW_NDISP] * pred.shape[0])
+        out.append(float(np.mean(epes)))
+    return out
+
+
+def datasets_eval_phase(torch, counters, roots, out_dir, faithful_epe):
+    """`cli.eval` of ckpt_faithful on the SceneFlow packs (held to the
+    faithful legacy anchor's band), on KITTI's train_eval split and on
+    Middlebury-H's two ndisp (batch 1), with the launches a forward and the
+    max_disp each batch chose; one batch of each of those two through the
+    kernel path against the plain path; KITTI's submission PNGs read
+    back; and one Middlebury-F forward (1998x2970, max_disp 810): its time
+    and peak memory."""
+    import numpy as np
+    from decnet_tpu_torch.cli import eval as teval
+    from decnet_tpu_torch.cli.demo import host_masks, predict
+    from decnet_tpu_torch.data import get_dataset
+    from decnet_tpu_torch.weights import load_checkpoint
+
+    def run_eval(dataset, root, split, batch, *extra):
+        zero_launches(counters)
+        res = teval.main(["--dataset", dataset, "--root", root,
+                          "--test_split", split, "--batch_size", str(batch),
+                          "--resume", CKPT, "--num_workers", "4",
+                          "--save2where", os.path.join(out_dir, dataset),
+                          "--device", DEV, *extra])
+        res["launches"] = check_forward_launches(
+            counters, len(res["max_disp"]), f"datasets_eval {dataset}")
+        return res
+
+    out = {}
+    model = load_checkpoint(CKPT, device=DEV)
+    # SceneFlow: the like-for-like reading, and the anchor's band beside
+    sf = run_eval("sceneflow", roots["sceneflow"], "test", SF_BATCH)
+    name, variant, anchor, _, source = SF_ANCHOR
+    per = sf["epe"]
+    if len(per) != SF_SCENES // SF_BATCH:
+        fail(f"datasets_eval sceneflow: {len(per)} batches")
+    stream = stream_cli_epe(torch, model, len(per))
+    se = float(np.std(per, ddof=1)) / math.sqrt(len(per))
+    band = BAND_SE * se + BAND_REL * anchor
+    epe = sf["mean_epe"]
+    worst = max(abs(a - b) for a, b in zip(per, stream))
+    ok = (abs(epe - np.mean(stream)) <= SF_STREAM_TOL
+          and worst <= SF_BATCH_TOL)
+    in_band = abs(epe - anchor) <= band
+    sf.update(se=se, band=band, anchor=anchor, in_band=in_band,
+              stream_epe=stream, stream_mean_epe=float(np.mean(stream)),
+              max_batch_delta=worst, eval_phase_epe=faithful_epe,
+              ms_per_batch=1e3 * float(np.mean(sf["seconds"][1:])))
+    print(f"  sceneflow packs ({len(per)} batches of {SF_BATCH}, max_disp "
+          f"{sorted(set(sf['max_disp']))}): mean EPE {epe:.5g}, loss_3 "
+          f"{sf['mean_d1']:.4g}%, SE {se:.4g}; the same stream batches "
+          f"scored alike {np.mean(stream):.5g} (|delta| "
+          f"{abs(epe - np.mean(stream)):.4g}, tol {SF_STREAM_TOL}; largest "
+          f"batch |delta| {worst:.4g}, tol {SF_BATCH_TOL}); the eval phase "
+          f"read {faithful_epe:.5g} over gt < {EVAL['max_disp']} (delta "
+          f"{epe - faithful_epe:+.4g}); the {name} {variant} anchor {anchor} "
+          f"({source}): |delta| {abs(epe - anchor):.4g}, band {band:.4g}: "
+          f"{'inside' if in_band else 'outside'}; {sf['ms_per_batch']:.2f} "
+          f"ms a batch; launches {json.dumps(sf['launches'])}", flush=True)
+    if not ok:
+        fail(f"datasets_eval sceneflow: mean EPE {epe:.5g} against the "
+             f"same stream batches' {np.mean(stream):.5g} (largest batch "
+             f"delta {worst:.4g})")
+    out["sceneflow"] = sf
+    # the same scenes at SceneFlow's 540x960, padded back by the dataset
+    cut = run_eval("sceneflow", roots["sceneflow_960"], "test", SF_BATCH)
+    cut["ms_per_batch"] = 1e3 * float(np.mean(cut["seconds"][1:]))
+    if not math.isfinite(cut["mean_epe"]):
+        fail("datasets_eval sceneflow 540x960: non-finite EPE")
+    print(f"  sceneflow 540x960 packs (the first {SF_CUT_SCENES} scenes, "
+          f"12 zero columns padded back): mean EPE {cut['mean_epe']:.5g}, "
+          f"loss_3 {cut['mean_d1']:.4g}% (the same scenes unpadded: "
+          f"{np.mean(per[:len(cut['epe'])]):.5g}); "
+          f"{cut['ms_per_batch']:.2f} ms a batch", flush=True)
+    out["sceneflow_960"] = cut
+
+    for suite, dataset, split in (("kitti", "kitti15", "train_eval"),
+                                  ("middlebury", "middlebury", "eval_H")):
+        res = run_eval(dataset, roots[suite], split, 1)
+        ds = get_dataset(dataset, roots[suite], split=split,
+                         is_training=False)
+        deltas = [kernel_vs_plain_batch(torch, model, ds, i, counters,
+                                        f"datasets_eval {suite}")[0]
+                  for i in (range(len(ds)) if suite == "middlebury"
+                            else range(1))]
+        res.update(plain_mean_abs_delta_px=deltas,
+                   ms_per_batch=1e3 * float(np.mean(res["seconds"][1:])))
+        print(f"  {suite} ({len(res['epe'])} batches of 1): max_disp "
+              f"{res['max_disp']}, mean EPE {res['mean_epe']:.5g}, loss_3 "
+              f"{res['mean_d1']:.4g}%, {res['ms_per_batch']:.2f} ms a "
+              f"batch, launches {json.dumps(res['launches'])}; kernel vs "
+              f"plain mean |delta disp| "
+              + ", ".join(f"{d:.4g}" for d in deltas) + " px", flush=True)
+        out[suite] = res
+    if sorted(set(out["middlebury"]["max_disp"])) != sorted(
+            -(-nd // 27) * 27 for nd in MID_H_NDISP):
+        fail(f"datasets_eval middlebury: max_disp "
+             f"{out['middlebury']['max_disp']}")
+    # KITTI's submission PNGs, each against the prediction written
+    with recorded_submissions() as seen:
+        run_eval("kitti15", roots["kitti"], "train_eval", 1, "--is_eval",
+                 "0")
+    if len(seen) != KITTI_SCENES:
+        fail(f"datasets_eval: {len(seen)} submission PNGs written")
+    out["kitti"]["submission_max_err_px"] = check_submissions(
+        seen, "datasets_eval kitti submission")
+    print(f"  kitti submission: {len(seen)} PNGs of "
+          f"{KITTI_SHAPE[0]}x{KITTI_SHAPE[1]}, read back within "
+          f"{out['kitti']['submission_max_err_px']:.4g} px", flush=True)
+    # Middlebury-F: one forward at full size, its time and peak memory
+    h, w = MID_F_SHAPE
+    with raw_scenes() as ds:
+        b = next(ds.device_batch_stream(17, val=True, batch=1, h=h, w=w,
+                                        max_disp=MID_F_NDISP, device=DEV))
+    left, right = b["left"] / 255.0, b["right"] / 255.0
+    masks = host_masks(left, right, model.cfg)
+    predict(model, left, right, *masks, MID_F_NDISP)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    t = time.perf_counter()
+    pred = predict(model, left, right, *masks, MID_F_NDISP)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = check_forward_launches(counters, 1, "datasets_eval "
+                                      "middlebury_f")
+    if pred.shape != (1, h, w) or not torch.isfinite(pred).all():
+        fail(f"middlebury_f: prediction {tuple(pred.shape)} not finite")
+    valid = (b["gt"] > 0) & (b["gt"] < MID_F_NDISP)
+    out["middlebury_f"] = {
+        "ms": ms, "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "launches": launches, "epe_px": float((pred - b["gt"]).abs()[
+            valid].mean())}
+    print(f"  middlebury_f {h}x{w} max_disp {MID_F_NDISP}: "
+          f"{ms:.2f} ms, peak {out['middlebury_f']['peak_mem_mb']:.1f} MiB, "
+          f"EPE {out['middlebury_f']['epe_px']:.4g} px, launches "
+          f"{json.dumps(launches)}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def datasets_train_phase(torch, spamat, counters, roots):
+    """The faithful recipe trained from the SceneFlow packs through the
+    train CLI's entry (`prepare` with data.on_device=false, batch 8 of
+    162x486 crops, mask_source compute, 4 loader threads; warm-started
+    from the checkpoint): a warm-up step, TRAIN_DISK_STEPS timed steps
+    with their launches and the host's wait for each batch, then the
+    kernel vs plain step check with the planted faults on one batch from
+    disk.  Then `cli.train.main` 2 steps each on KITTI (its augment
+    schedule, B = 8 of 270x513) and on the host synthetic dataset."""
+    import numpy as np
+    from decnet_tpu_torch.cli import train as tcli
+
+    base = ["--config", os.path.join(CKPT, "config.json"), "--set",
+            "data.on_device=false", "--set", "data.num_workers=4",
+            "--init_from", CKPT, "--device", DEV]
+    ckpt_out = os.path.join(ROOT, "build", "decnet_tpu_torch",
+                            "smoke_ckpt_disk")
+    shutil.rmtree(ckpt_out, ignore_errors=True)
+    run = tcli.prepare(base + ["--dataset", "sceneflow", "--root",
+                               roots["sceneflow_960"], "--train_split", "test",
+                               "--mask_source", "compute", "--steps",
+                               str(TRAIN_DISK_STEPS + 1), "--ckpt_dir",
+                               ckpt_out])
+    cfg, model = run.cfg, run.state.model
+    shape = (cfg.train.batch_size, cfg.train.crop_h, cfg.train.crop_w,
+             cfg.model.max_disp, cfg.model.dtype)
+    if shape != TRAIN_SHAPE or cfg.data.on_device:
+        fail(f"datasets_train config {shape} is not the faithful run's")
+    run.step(next(run.stream))                      # warm-up, rate 0
+    torch.cuda.synchronize()
+    zero_launches(counters)
+    ms, waits, losses, batch = [], [], [], None
+    for _ in range(TRAIN_DISK_STEPS):
+        t = time.perf_counter()
+        batch = next(run.stream)
+        waits.append((time.perf_counter() - t) * 1e3)
+        logs = run.step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(logs["total"]))
+        if not all(math.isfinite(float(v)) for v in logs.values()):
+            fail("datasets_train: non-finite logs")
+    launches = count_launches(counters)
+    if any(n != 3 * TRAIN_DISK_STEPS for n in launches.values()):
+        fail(f"datasets_train: launches {launches} in {TRAIN_DISK_STEPS} "
+             f"steps, expected 3 each a step")
+    share = sum(waits) / sum(ms)
+    for i, (m, w, l) in enumerate(zip(ms, waits, losses)):
+        print(f"  step {i + 2}: {m:.2f} ms, loader wait {w:.2f} ms, "
+              f"loss={l:.5f}", flush=True)
+    checks = step_checks(torch, spamat, model, batch, cfg, "datasets_train")
+    del run, model
+    shutil.rmtree(ckpt_out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    others = {}
+    for dataset, extra in (
+            ("kitti15", ["--root", roots["kitti"], "--train_split", "train",
+                         "--set", f"train.crop_h={KITTI_CROP[0]}", "--set",
+                         f"train.crop_w={KITTI_CROP[1]}"]),
+            ("synthetic", ["--dataset_length", "16"])):
+        zero_launches(counters)
+        t = time.perf_counter()
+        tcli.main(base + ["--dataset", dataset, "--steps", "2", "--set",
+                          "train.log_every=1", "--ckpt_dir", ckpt_out]
+                  + extra)
+        torch.cuda.synchronize()
+        n = count_launches(counters)
+        if any(v != 6 for v in n.values()):
+            fail(f"datasets_train {dataset}: launches {n} in 2 steps")
+        others[dataset] = {"seconds": time.perf_counter() - t,
+                           "launches": n}
+        shutil.rmtree(ckpt_out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "loader_wait_ms": waits,
+            "loader_wait_share": share, "losses": losses,
+            "launches": launches, "others": others, **checks}
+
+
+def reference_state_dict(params_npz):
+    """The reference-form state dict of a `params.npz`: every name of the
+    port's name map whose flax array the file holds, in the torch layout
+    (each layout conversion inverted)."""
+    import numpy as np
+    from decnet_tpu_torch.train import torch_import as ti
+    to_torch = {ti.conv2d_kernel: lambda k: k.transpose(3, 2, 0, 1),
+                ti.conv3d_kernel: lambda k: k.transpose(4, 3, 0, 1, 2),
+                ti.conv_transpose2d_kernel:
+                    lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1)}
+    with np.load(params_npz) as z:
+        flat = {tuple(p[2:-2] for p in k.split("/")): z[k] for k in z.files}
+    state = {}
+    for tname, fpath, conv, coll in ti.build_name_map(4):
+        key = (coll,) + tuple(fpath)
+        if key in flat:
+            v = flat[key]
+            state[tname] = np.array(
+                to_torch[conv](v) if conv is not None else v, np.float32,
+                order="C")
+    return state, len(flat)
+
+
+def reference_import_phase(torch, gen, tmp):
+    """ckpt_faithful in the reference's form (`module.` names under
+    `model_state`, torch.save'd), served through the CLIs' `--resume
+    x.pkl` (`cli.common`): the import must copy every array with nothing
+    missing or unmatched, and one 540x972 request must give the same
+    disparities, bit for bit, as `load_checkpoint(ckpt_faithful)`."""
+    import argparse
+    import io
+    from decnet_tpu_torch.cli import common
+    from decnet_tpu_torch.cli.demo import host_masks, predict
+    from decnet_tpu_torch.data.synthetic import synthetic_pair
+    from decnet_tpu_torch.weights import load_checkpoint
+    state, n_npz = reference_state_dict(os.path.join(CKPT, "params.npz"))
+    pkl = os.path.join(tmp, "ckpt_faithful_reference.pkl")
+    torch.save({"model_state": {"module." + k: torch.from_numpy(v)
+                                for k, v in state.items()}}, pkl)
+    p = argparse.ArgumentParser()
+    common.add_config_args(p)
+    args = p.parse_args(["--config", os.path.join(CKPT, "config.json"),
+                         "--resume", pkl, "--device", DEV])
+    cfg = common.apply_checkpoint_sidecar(common.build_config(args), args)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        model, _ = common.init_model_and_state(cfg, args.resume,
+                                               device=args.device)
+    report = printed.getvalue().strip()
+    print(f"  {report}", flush=True)
+    want_report = (f"copied {len(state)}, missing 0, unmatched 0")
+    if not report.endswith(want_report) or len(state) != n_npz:
+        fail(f"reference_import: '{report}', expected '{want_report}' with "
+             f"all {n_npz} arrays of params.npz")
+    ref = load_checkpoint(CKPT, device=DEV)
+    H, W, D = SERVE
+    left, right, _, _ = synthetic_pair(H, W, gen, DEV)
+    masks = host_masks(left, right, ref.cfg)
+    got = predict(model, left, right, *masks, D)
+    want = predict(ref, left, right, *masks, D)
+    if not torch.equal(got, want):
+        fail(f"reference_import: the .pkl's disparities differ from the "
+             f"checkpoint's by up to {float((got - want).abs().max()):.3g}")
+    del model, ref
+    torch.cuda.empty_cache()
+    return {"arrays": len(state), "report": report, "bit_equal": True}
+
+
+def demo_cli_phase(torch, counters, sf_root, tmp):
+    """Two SceneFlow scenes written as im0.png / im1.png / calib.txt by
+    the port's encoder, then `cli.demo.main` on the card with each mask
+    source: every submission PNG read back within 1/256 px of `predict`'s
+    output, 3 moments and 3 warps a scene."""
+    import numpy as np
+    from decnet_tpu_torch.cli import demo
+    from decnet_tpu_torch.data import io as dio
+    scenes = os.path.join(tmp, "demo_in")
+    for i in range(2):
+        pack = np.load(os.path.join(sf_root, "test", f"{i:04d}.npy"))
+        sdir = os.path.join(scenes, f"scene{i}")
+        os.makedirs(sdir)
+        for name, img in (("im0.png", pack[..., :3]),
+                          ("im1.png", pack[..., 3:6])):
+            dio.write_png(os.path.join(sdir, name),
+                          np.round(img).astype(np.uint8))
+        with open(os.path.join(sdir, "calib.txt"), "w") as f:
+            f.write(f"width={pack.shape[1]}\nndisp={SERVE[2]}\n")
+    out, real = {}, demo.predict
+    for source in ("compute", "wavelet"):
+        preds = []
+
+        def spy(*a, **k):
+            preds.append(real(*a, **k))
+            return preds[-1]
+        demo.predict = spy
+        zero_launches(counters)
+        save = os.path.join(tmp, f"demo_{source}")
+        try:
+            demo.main(["--root", scenes, "--save2where", save, "--resume",
+                       CKPT, "--mask_source", source, "--device", DEV])
+        finally:
+            demo.predict = real
+        launches = check_forward_launches(counters, 2, f"demo_cli {source}")
+        seen = [(os.path.join(save, f"scene{i}.png"),
+                 p[0].float().cpu().numpy(), None, None)
+                for i, p in enumerate(preds)]
+        if len(seen) != 2:
+            fail(f"demo_cli {source}: {len(seen)} predictions")
+        out[source] = {"max_err_px": check_submissions(
+            seen, f"demo_cli {source}"), "launches": launches}
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -1053,7 +1644,15 @@ def main():
         windowed = windowed_parity(torch, spamat, gen, flush_buf)
         windowed_train = windowed_parity(torch, spamat, gen, flush_buf,
                                          TRAIN_WINDOWED_STAGES, TRAIN_B)
+        # the benchmark suites' shapes (B = 1): KITTI, Middlebury-H (the
+        # forward splits rows at stage 3), Middlebury-F
+        suite_parity = {}
+        for suite, stages in SUITE_STAGES.items():
+            print(f"  -- {suite}", flush=True)
+            suite_parity[suite] = kernel_parity(torch, spamat, kwarp, gen,
+                                                flush_buf, stages)
     phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
+          suite_shapes=sum(len(v) for v in SUITE_STAGES.values()),
           windowed_shapes=len(WINDOWED_STAGES) + len(TRAIN_WINDOWED_STAGES),
           dtypes=2, timing_floor_ms=f"{floor_ms:.4g}",
           timing_floor_no_flush_ms=f"{floor_no_flush_ms:.4g}",
@@ -1063,9 +1662,19 @@ def main():
     t0 = time.perf_counter()
     with torch.no_grad():
         bwd = backward_parity(torch, spamat, gen, flush_buf)
+        # KITTI's training crop, B = 8 of 270x513
+        print("  -- kitti training crop", flush=True)
+        bwd_kitti = backward_parity(
+            torch, spamat, gen, flush_buf,
+            [(TRAIN_B, shape, dt, 0, False, False)
+             for shape in KITTI_TRAIN_STAGES
+             for dt in (torch.float32, torch.bfloat16)], "_kitti")
     phase("backward_parity", t0, shapes=len(TRAIN_STAGES), dtypes=2,
-          windowed=1 + len(TRAIN_WINDOWED_STAGES), adversarial=1, split_rows=len(SPLIT_ROW_STAGES), **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
-                         for k, v in bwd.items()})
+          windowed=1 + len(TRAIN_WINDOWED_STAGES), adversarial=1,
+          split_rows=len(SPLIT_ROW_STAGES),
+          kitti_shapes=len(KITTI_TRAIN_STAGES),
+          **{f"{k}_max_rel_err": f"{max(r['rel_err'] for r in v):.3g}"
+             for k, v in {**bwd, **bwd_kitti}.items()})
 
     # -- 4. load
     t0 = time.perf_counter()
@@ -1212,6 +1821,67 @@ def main():
              for k, r in evals.items()},
           faithful_sparse_contribution_epe=f"{evals['ckpt_faithful']['sparse_contribution_epe']:.4g}")
 
+    # -- 10. the benchmark suites' files: made, evaluated, trained on
+    tmp = tempfile.mkdtemp(prefix="decnet_smoke_")
+    try:
+        t0 = time.perf_counter()
+        roots = write_suites(torch, tmp)
+        phase("suite_files", t0, root=tmp,
+              sceneflow=f"{SF_SCENES}x{EVAL['h']}x{EVAL['w']}",
+              sceneflow_960=f"{SF_CUT_SCENES}x{SF_SHAPE[0]}x{SF_SHAPE[1]}",
+              kitti=f"{KITTI_SCENES}x{KITTI_SHAPE[0]}x{KITTI_SHAPE[1]}",
+              middlebury_h=f"{len(MID_H_NDISP)}x{MID_H_SHAPE[0]}x"
+                           f"{MID_H_SHAPE[1]}")
+        t0 = time.perf_counter()
+        dse = datasets_eval_phase(torch, counters, roots,
+                                  os.path.join(tmp, "eval_out"),
+                                  evals["ckpt_faithful"]["stage3_epe"])
+        phase("datasets_eval", t0,
+              sceneflow_epe=f"{dse['sceneflow']['mean_epe']:.5g}",
+              sceneflow_band=f"{SF_ANCHOR[2]}+-{dse['sceneflow']['band']:.4g}",
+              sceneflow_ms_per_batch=f"{dse['sceneflow']['ms_per_batch']:.2f}",
+              sceneflow_960_epe=f"{dse['sceneflow_960']['mean_epe']:.5g}",
+              kitti_max_disp=",".join(map(str, dse["kitti"]["max_disp"])),
+              middlebury_max_disp=",".join(
+                  map(str, dse["middlebury"]["max_disp"])),
+              plain_mean_abs_delta_px=",".join(
+                  f"{d:.4g}" for k in ("kitti", "middlebury")
+                  for d in dse[k]["plain_mean_abs_delta_px"]),
+              submission_max_err_px="{:.4g}".format(
+                  dse["kitti"]["submission_max_err_px"]),
+              middlebury_f_ms=f"{dse['middlebury_f']['ms']:.2f}",
+              middlebury_f_peak_mem_mb="{:.1f}".format(
+                  dse["middlebury_f"]["peak_mem_mb"]))
+        t0 = time.perf_counter()
+        dst = datasets_train_phase(torch, spamat, counters, roots)
+        phase("datasets_train", t0, steps=TRAIN_DISK_STEPS, batch=b,
+              size=f"{h}x{w}",
+              step_ms=",".join(f"{x:.2f}" for x in dst["step_ms"]),
+              loader_wait_ms=",".join(f"{x:.2f}"
+                                      for x in dst["loader_wait_ms"]),
+              loader_wait_share=f"{dst['loader_wait_share']:.4f}",
+              launches=json.dumps(dst["launches"]),
+              plain_loss_rel=f"{dst['plain_loss_rel']:.3g}",
+              plain_grad_cos=f"{dst['plain_grad_cos']:.7f}",
+              plain_matching_grad_cos=f"{dst['plain_matching_grad_cos']:.7f}",
+              planted_faults=",".join(
+                  f"{k}:{v['grad_cos']:.5g}/{v['matching_grad_cos']:.5g}"
+                  f"{':rejected' if v['rejected'] else ':passed'}"
+                  for k, v in dst["planted_faults"].items()),
+              **{f"{k}_2_steps_s": f"{v['seconds']:.2f}"
+                 for k, v in dst["others"].items()})
+        t0 = time.perf_counter()
+        ref_import = reference_import_phase(torch, gen, tmp)
+        phase("reference_import", t0, arrays=ref_import["arrays"],
+              bit_equal=ref_import["bit_equal"])
+        t0 = time.perf_counter()
+        demo_cli = demo_cli_phase(torch, counters, roots["sceneflow_960"],
+                                  tmp)
+        phase("demo_cli", t0, **{f"{k}_max_err_px": f"{v['max_err_px']:.4g}"
+                                 for k, v in demo_cli.items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # -- 9. the kernels line: per kernel, the launches of each path's run;
     # times summed over the three fine-stage shapes of its main path
     # (serving, one 540x972 request, for the forward kernels; a training
@@ -1282,6 +1952,30 @@ def main():
                         "launches_by_path": by_path,
                         "max_abs_err": max(r["max_abs_err"] for r in recs),
                         **summed(recs)})
+    # the suites' shapes: the moments and the warp at the shapes of one
+    # forward of each (launches of its eval runs, of its one forward for
+    # Middlebury-F), dRef and dTar at KITTI's training crop (launches of
+    # its 2 steps)
+    suite_launches = {"kitti": dse["kitti"]["launches"],
+                      "middlebury_h": dse["middlebury"]["launches"],
+                      "middlebury_f": dse["middlebury_f"]["launches"]}
+    for suite, par in suite_parity.items():
+        for name, recs in par.items():
+            kernels.append({
+                "name": f"{name}_{suite}", "route": "cuda",
+                "source": sources[name][0], "replaces": sources[name][1],
+                "launches": suite_launches[suite][name],
+                "max_abs_err": max(r["max_abs_err"] for r in recs),
+                **summed(recs)})
+    for name, recs in bwd_kitti.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": sources[name[:-len("_kitti")]][0],
+            "replaces": sources[name[:-len("_kitti")]][1],
+            "launches": dst["others"]["kitti15"]["launches"][
+                name[:-len("_kitti")]],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **summed(recs)})
     torch.cuda.synchronize()
     if args.out:
         with open(args.out, "w") as f:
@@ -1294,7 +1988,11 @@ def main():
                        "windowed": windowed,
                        "windowed_train": windowed_train,
                        "train_s2d": train_s2d, "serve_s2d": s2d,
-                       "eval": evals,
+                       "eval": evals, "suite_parity": suite_parity,
+                       "backward_kitti": bwd_kitti, "datasets_eval": dse,
+                       "datasets_train": dst,
+                       "reference_import": ref_import,
+                       "demo_cli": demo_cli,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,

@@ -2,15 +2,20 @@
 
 For each scene directory under --root holding im0.png/im1.png (and an
 optional calib.txt with ndisp): pad to x27, compute the detail masks on the
-host as the JAX demo does (`data/masks.py::detail_masks_np`, the native
-library; a model with learned detail heads makes its own and skips this),
-normalise, run DecNet, crop back, and write `<scene>.png` (uint16,
-disparity * 256) into --save2where.  Any committed checkpoint serves:
-faithful, s2d, windowed, learned detail.
+host as the JAX demo does (`--mask_source compute`: `data/masks.py::
+detail_masks_np`, the native library; `wavelet`: the pair-consistent
+wavelet masks; a model with learned detail heads makes its own and skips
+this), normalise, run DecNet, crop back, and write `<scene>.png` (uint16,
+disparity * 256) into --save2where.  PNG files are read and written by
+`data/io.py`, without PIL or cv2.  Any committed checkpoint serves
+(faithful, s2d, windowed, learned detail), and so does a reference `.pkl`
+(`cli/common.py`).  --dump_intermediates and --exec_s2d are not ported
+(ROADMAP.md section 1, items 11 and 2).
 
 Usage:
   python -m decnet_tpu_torch.cli.demo --root InputData/Sceneflow \
-      --save2where out/ [--resume runs/ckpt_faithful] [--device cuda]
+      --save2where out/ [--resume runs/ckpt_faithful | --resume x.pkl] \
+      [--max_disp 216] [--mask_source compute|wavelet] [--device cuda]
 """
 from __future__ import annotations
 
@@ -22,11 +27,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from decnet_tpu_torch.cli.common import (add_config_args,
+                                         apply_checkpoint_sidecar,
+                                         build_config, init_model_and_state)
 from decnet_tpu_torch.config import ModelConfig
 from decnet_tpu_torch.data import io as dio
 from decnet_tpu_torch.data import masks as dmasks
 from decnet_tpu_torch.models.decnet import DecNet
-from decnet_tpu_torch.weights import load_checkpoint
 
 MASK_THOLD = 0.3      # the demo's precomputed-mask threshold
 PAD_MULTIPLE = 27
@@ -49,12 +56,30 @@ def host_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig,
     return [m[:B] for m in levels], [m[B:] for m in levels]
 
 
+def wavelet_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The JAX demo's wavelet masks of one stereo pair (1,3,H,W) in [0,1]
+    (`data/masks.py::wavelet_pair_masks_np`, thresholds shared by the
+    pair), padded as `predict` pads it: (left, right) lists of (1,h,w) f32
+    masks, coarsest first, on the images' device."""
+    lp, rp = (dio.pad_to_multiple(x.float(), PAD_MULTIPLE)[0]
+              .permute(1, 2, 0).cpu().numpy() for x in (left, right))
+    lms, rms = dmasks.wavelet_pair_masks_np(lp, rp, cfg.down_scale,
+                                            cfg.num_stage - 1)
+    to = lambda ms: [torch.from_numpy(m)[None].to(left.device) for m in ms]
+    return to(lms), to(rms)
+
+
 def request_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig,
-                  mask_thold: float = MASK_THOLD):
-    """The masks a request needs: `host_masks`, or (None, None) for a
-    model whose learned detail heads make them."""
+                  mask_thold: float = MASK_THOLD,
+                  mask_source: str = "compute"):
+    """The masks a request needs: `host_masks` (`wavelet_masks` for
+    mask_source "wavelet"), or (None, None) for a model whose learned
+    detail heads make them."""
     if cfg.use_detail:
         return None, None
+    if mask_source == "wavelet":
+        return wavelet_masks(left, right, cfg)
     return host_masks(left, right, cfg, mask_thold)
 
 
@@ -75,18 +100,19 @@ def predict(model: DecNet, left: torch.Tensor, right: torch.Tensor,
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    add_config_args(p)
+    p.set_defaults(resume="runs/ckpt_faithful")
     p.add_argument("--root", required=True)
     p.add_argument("--save2where", required=True)
-    p.add_argument("--resume", default="runs/ckpt_faithful",
-                   help="checkpoint directory (config.json + params.npz)")
-    p.add_argument("--max_disp", type=int, default=0,
-                   help="0: the checkpoint's max_disp")
     p.add_argument("--mask_thold", type=float, default=MASK_THOLD)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--mask_source", default="compute",
+                   choices=("compute", "wavelet"))
     args = p.parse_args(argv)
 
-    model = load_checkpoint(args.resume, device=args.device)
+    cfg = apply_checkpoint_sidecar(build_config(args), args)
+    model, _ = init_model_and_state(cfg, args.resume, device=args.device)
     dev = next(model.parameters()).device
     os.makedirs(args.save2where, exist_ok=True)
     scenes = sorted(d for d in os.listdir(args.root)
@@ -101,9 +127,9 @@ def main(argv=None):
 
         left, right = load("im0.png"), load("im1.png")
         ndisp = (dio.read_calib_ndisp(os.path.join(sdir, "calib.txt"))
-                 or args.max_disp or model.cfg.max_disp)
+                 or cfg.model.max_disp)
         lmasks, rmasks = request_masks(left, right, model.cfg,
-                                       args.mask_thold)
+                                       args.mask_thold, args.mask_source)
         t0 = time.perf_counter()
         pred = predict(model, left, right, lmasks, rmasks, int(ndisp))
         pred = pred[0].cpu().numpy()     # waits for the device
@@ -112,6 +138,7 @@ def main(argv=None):
                                  pred)
         print(f"{name}: {left.shape[2]}x{left.shape[3]} ndisp={ndisp} "
               f"cost time: {dt:.3f}s")
+    print("The testing is completed:", time.strftime("%Y-%m-%d %H:%M:%S"))
 
 
 if __name__ == "__main__":

@@ -1,29 +1,45 @@
-"""Training CLI for the on-device synthetic stream — the twin of
-decnet_tpu/cli/train.py for `data.on_device` with `--dataset synthetic`.
+"""Training CLI — the port of decnet_tpu/cli/train.py, single process.
 
 Any committed checkpoint's recipe trains: the faithful model, learned
 detail heads (`use_detail`, whose mask loss adds `loss.alpha` times its
 value), the s2d full-resolution stage (`s2d_fine`) and the windowed
 matching (`match_window`), under any of the five loss types.
-Per step: a batch made on the device (`data/device_synth.py`), the forward
-with batch-statistic batch norm (running statistics from
-`train.freeze_bn_after` on, or throughout with `train.freeze_bn`), the
-loss, backward, the global-norm clip and Adam at the scheduled rate.  Logs
-the JAX CLI's JSON lines every `train.log_every` steps (and eval lines
-with --eval_split).  Every `train.ckpt_every` steps and at the end it saves
-a resumable checkpoint, `<ckpt_dir>/<step>/` (the newest
-`train.keep_ckpts` kept), and refreshes `<ckpt_dir>/params.npz` and
-`config.json`.
+
+Data: with `data.on_device` (`--dataset synthetic`) batches are made on
+the device (`data/device_synth.py`).  Otherwise (`--set
+data.on_device=false`, the JAX CLI's default) they come from files: the
+dataset `--dataset` under `--root` (sceneflow, kitti15, middlebury,
+drivingstereo, or the host `synthetic`; `--train_split`, `--mask_source`,
+`--dataset_length` for synthetic), cropped and augmented by
+`data/datasets.py` in `data.num_workers` loader threads that keep batches
+ready ahead of the step, epoch after epoch, and a thread that pins each
+batch ahead so the step only enqueues its copy to the card
+(`data/loader.py::device_batches`).  With --eval_split the
+dataset's eval batches go to the device once, at the start.
+
+Per step: the forward with batch-statistic batch norm (running
+statistics from `train.freeze_bn_after` on, or throughout with
+`train.freeze_bn`), the loss, backward, the global-norm clip and Adam at
+the scheduled rate.  Logs the JAX CLI's JSON lines every
+`train.log_every` steps, with `loader_wait_s`, the host's seconds spent
+waiting for batches in that interval (and eval lines with --eval_split).
+Every `train.ckpt_every` steps and at the end it saves a resumable
+checkpoint, `<ckpt_dir>/<step>/` (the newest `train.keep_ckpts` kept), and
+refreshes `<ckpt_dir>/params.npz` and `config.json`.
 
 Usage:
   python -m decnet_tpu_torch.cli.train --config runs/ckpt_faithful/config.json \
       --dataset synthetic --ckpt_dir out/ --steps 100 \
       [--init_from runs/ckpt_faithful] [--set train.batch_size=4 ...] \
       [--eval_split val --eval_every 50 --eval_batches 4] [--device cuda]
+  python -m decnet_tpu_torch.cli.train --config runs/ckpt_faithful/config.json \
+      --dataset sceneflow --root /data/sf --set data.on_device=false \
+      --ckpt_dir out/ --steps 100 [--init_from runs/ckpt_faithful]
 
 A --ckpt_dir that holds a checkpoint is resumed from its newest step:
-parameters, BN statistics, optimizer state and step, and the stream goes
-on at that step's batch.  --init_from then does nothing; on a fresh run it
+parameters, BN statistics, optimizer state and step; the on-device stream
+goes on at that step's batch (a dataset's loader starts a new epoch, as
+the JAX CLI's does).  --init_from then does nothing; on a fresh run it
 warm-starts from a params.npz directory, as the JAX CLI's
 `restore_partial` does from an Orbax directory: every parameter and BN
 statistic whose key and shape match is copied, the rest keep their fresh
@@ -43,7 +59,10 @@ import numpy as np
 import torch
 
 from decnet_tpu_torch.config import Config, load_full_config
+from decnet_tpu_torch.data import get_dataset
 from decnet_tpu_torch.data.device_synth import device_batch_stream
+from decnet_tpu_torch.data.loader import (HOST_KEYS, DataLoader,
+                                          device_batches, to_device)
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.models.decnet import DecNet
 from decnet_tpu_torch.train.checkpoint import CheckpointManager
@@ -63,7 +82,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    metavar="SECTION.KEY=VALUE",
                    help="config override, e.g. --set model.max_disp=54")
     p.add_argument("--dataset", required=True,
-                   help="only 'synthetic' (the on-device stream) is ported")
+                   help="synthetic (on the device with data.on_device, "
+                   "else the host twin), sceneflow, kitti15, middlebury, "
+                   "drivingstereo")
+    p.add_argument("--root", default="",
+                   help="the dataset's directory (files only)")
+    p.add_argument("--train_split", default="train")
+    p.add_argument("--mask_source", default="compute",
+                   choices=("compute", "precomputed", "wavelet"))
+    p.add_argument("--dataset_length", type=int, default=None,
+                   help="the host synthetic dataset's length")
     p.add_argument("--ckpt_dir", default=None)
     p.add_argument("--steps", type=int, default=None,
                    help="train.total_steps (also sets the schedule's length)")
@@ -71,7 +99,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="warm start: a directory with a params.npz; "
                    "what matches by key and shape is loaded")
     p.add_argument("--eval_split", default=None,
-                   help="any value: evaluate on the validation stream")
+                   help="a split of the dataset to evaluate on; any value "
+                   "with data.on_device (the validation stream)")
     p.add_argument("--eval_every", type=int, default=2000)
     p.add_argument("--eval_batches", type=int, default=16)
     p.add_argument("--device", default="cuda")
@@ -81,16 +110,45 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_config(args: argparse.Namespace) -> Config:
     cfg = (load_full_config(args.config, args.overrides) if args.config
            else Config().apply_overrides(args.overrides))
-    if args.dataset != "synthetic" or not cfg.data.on_device:
-        raise NotImplementedError(
-            f"only the on-device synthetic stream is ported (got --dataset "
-            f"{args.dataset!r}, data.on_device={cfg.data.on_device})")
+    if cfg.data.on_device and args.dataset != "synthetic":
+        raise ValueError(f"data.on_device makes synthetic batches; --dataset "
+                         f"{args.dataset!r} is read from files with "
+                         f"--set data.on_device=false")
     check_loss_type(cfg)
+    cfg.data.dataset, cfg.data.root = args.dataset, args.root
     if args.ckpt_dir:
         cfg.train.ckpt_dir = args.ckpt_dir
     if args.steps:
         cfg.train.total_steps = args.steps
     return cfg
+
+
+class Waited:
+    """An iterator's items, with the host seconds spent waiting for them
+    summed in `waited`."""
+
+    def __init__(self, it: Iterator[Dict]):
+        self.it, self.waited = it, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict:
+        t = time.perf_counter()
+        try:
+            return next(self.it)
+        finally:
+            self.waited += time.perf_counter() - t
+
+
+def host_batches(loader: DataLoader, device) -> Iterator[Dict]:
+    """The loader's batches on `device`, epoch after epoch through one
+    pool of workers, each pinned and handed over ahead of its step
+    (`data/loader.py::device_batches`)."""
+    for b in device_batches(loader.repeat(), device):
+        for k in HOST_KEYS:
+            b.pop(k, None)
+        yield b
 
 
 @dataclasses.dataclass
@@ -136,17 +194,48 @@ def prepare(argv=None) -> Run:
               f"{cfg.train.ckpt_dir}", flush=True)
     if args.init_from and state.step == 0:
         warm_start(state.model, os.path.join(args.init_from, "params.npz"))
-    gen_kw = dict(batch=cfg.train.batch_size, h=cfg.train.crop_h,
-                  w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
-                  scale=cfg.model.down_scale, levels=cfg.model.num_stage - 1,
-                  thold=cfg.data.mask_thold, dtype=cfg.model.torch_dtype,
-                  device=dev, variant=cfg.data.variant)
-    stream = device_batch_stream(cfg.train.seed, start_step=state.step,
-                                 **gen_kw)
-    eval_batches = None
-    if args.eval_split:
-        val = device_batch_stream(cfg.train.seed, val=True, **gen_kw)
-        eval_batches = [next(val) for _ in range(args.eval_batches)]
+    if cfg.data.on_device:
+        gen_kw = dict(batch=cfg.train.batch_size, h=cfg.train.crop_h,
+                      w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
+                      scale=cfg.model.down_scale,
+                      levels=cfg.model.num_stage - 1,
+                      thold=cfg.data.mask_thold, dtype=cfg.model.torch_dtype,
+                      device=dev, variant=cfg.data.variant)
+        stream = device_batch_stream(cfg.train.seed, start_step=state.step,
+                                     **gen_kw)
+        eval_batches = None
+        if args.eval_split:
+            val = device_batch_stream(cfg.train.seed, val=True, **gen_kw)
+            eval_batches = [next(val) for _ in range(args.eval_batches)]
+    else:
+        ds_kw = dict(scale=cfg.model.down_scale,
+                     levels=cfg.model.num_stage - 1,
+                     mask_source=args.mask_source,
+                     img_size=(cfg.train.crop_h, cfg.train.crop_w))
+        length = ({} if args.dataset_length is None
+                  else {"length": args.dataset_length})
+        ds = get_dataset(args.dataset, args.root, split=args.train_split,
+                         is_training=True, seed=cfg.train.seed, **ds_kw,
+                         **length)
+        stream = host_batches(DataLoader(
+            ds, batch_size=cfg.train.batch_size, shuffle=True,
+            num_workers=cfg.data.num_workers, drop_last=True,
+            seed=cfg.train.seed), dev)
+        eval_batches = None
+        if args.eval_split:
+            # the first eval_batches of one epoch, sent to the device once
+            eval_ds = get_dataset(args.dataset, args.root,
+                                  split=args.eval_split, is_training=False,
+                                  **ds_kw)
+            eval_loader = DataLoader(eval_ds, batch_size=cfg.train.batch_size,
+                                     num_workers=cfg.data.num_workers,
+                                     drop_last=True)
+            eval_batches = []
+            for b in itertools.islice(eval_loader, args.eval_batches):
+                b = to_device(b, dev)
+                for k in HOST_KEYS:
+                    b.pop(k, None)
+                eval_batches.append(b)
     return Run(cfg, state, stream, eval_batches, args.eval_every, ckpt)
 
 
@@ -154,9 +243,11 @@ def run(r: Run) -> None:
     cfg, t = r.cfg, r.cfg.train
     print(f"training from step {r.state.step} to {t.total_steps} "
           f"(device {next(r.state.model.parameters()).device}, "
-          f"data=on-device)", flush=True)
+          f"data={'on-device' if cfg.data.on_device else cfg.data.dataset})",
+          flush=True)
     t_log = time.perf_counter()
-    for batch in itertools.islice(r.stream,
+    stream, waited = Waited(r.stream), 0.0
+    for batch in itertools.islice(stream,
                                   max(t.total_steps - r.state.step, 0)):
         logs = r.step(batch)
         step = r.state.step
@@ -164,10 +255,12 @@ def run(r: Run) -> None:
             logs = {k: float(v) for k, v in logs.items()}
             dt = time.perf_counter() - t_log
             t_log = time.perf_counter()
+            waited, wait_s = stream.waited, stream.waited - waited
             print(json.dumps(
                 {"step": step, "loss": round(logs["total"], 5),
                  "grad_norm": round(logs["grad_norm"], 4),
                  "steps_per_sec": round(t.log_every / dt, 3),
+                 "loader_wait_s": round(wait_s, 4),
                  **{k: round(v, 5) for k, v in logs.items()
                     if k not in ("total", "grad_norm")}}), flush=True)
         if r.eval_batches is not None and step % r.eval_every == 0:

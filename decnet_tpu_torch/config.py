@@ -84,10 +84,13 @@ class ModelConfig:
             " (ROADMAP.md section 1, item 1: the s2d form of the 1/3-res "
             "stage)")
         _refuse("ModelConfig", self, {
-            "num_stage": self.num_stage != 4,
             "skip_stage_id": self.skip_stage_id < self.num_stage,
             "cost_func": self.cost_func != "cor",
-            "norm": self.norm != "bn",
+            "norm": self.norm != "bn"},
+            " (ROADMAP.md section 1, item 5: the cat/ssd costs, the gn norm "
+            "and the bicubic skip of fine stages)")
+        _refuse("ModelConfig", self, {
+            "num_stage": self.num_stage != 4,
             "dtype": self.dtype not in DTYPES,
         })
 

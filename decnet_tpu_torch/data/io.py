@@ -1,20 +1,46 @@
-"""Demo input/output — the port of decnet_tpu/data/io.py:65-125.
+"""Image and disparity file I/O — the port of decnet_tpu/data/io.py, with
+no PIL and no cv2 (the card's machine has neither).
 
-`pad_to_multiple` and `normalize_image` work on (B,3,H,W) tensors on any
-device.  The PNG and calib readers run on the host for the demo CLI and
-import PIL only when called."""
+PNG files are read and written here: the chunks are parsed in Python, the
+image data inflated by the standard library's `zlib`, and the scanline
+filters (None, Sub, Up, Average, Paeth) undone by
+`csrc/host/png_unfilter.cc`, built by g++ at first use
+(`ops/kernels/build.py`).  8- and 16-bit gray, gray+alpha, RGB and RGBA
+are read; palette, interlaced and 1/2/4-bit files are refused with an
+error.  Written files are 8-bit gray/RGB/RGBA or 16-bit gray, filter 0.
+JPEG is refused (ROADMAP.md section 1, item 10).
+
+PFM files (SceneFlow's disparities) are read and written in numpy
+(`read_pfm`, `write_pfm`) or decoded by `native/decnet_native.cc`
+(`decode_pfm`).  `pad_to_multiple` and `normalize_image` work on (B,3,H,W)
+tensors on any device; `pad_to_multiple_np` and `normalize_image_np` are
+their numpy twins for host samples (H,W[,C])."""
 from __future__ import annotations
 
+import ctypes
 import math
 import os
-from typing import Optional
+import re
+import struct
+import zlib
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from decnet_tpu_torch.ops.kernels import build
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+_MEAN_NP = np.array(IMAGENET_MEAN, np.float32)
+_STD_NP = np.array(IMAGENET_STD, np.float32)
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG colour type -> channels (0 gray, 2 RGB, 4 gray+alpha, 6 RGBA)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_JPEG_REFUSAL = ("JPEG decoding is not ported (ROADMAP.md section 1, item 10: "
+                 "the card's machine has no cv2 or PIL)")
 
 
 def pad_to_multiple(img: torch.Tensor, multiple: int = 27) -> torch.Tensor:
@@ -34,11 +60,166 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     return (img.float() - mean) / std
 
 
+def pad_to_multiple_np(img: np.ndarray, multiple: int = 27) -> np.ndarray:
+    """Zero-pad top-left so H, W of (H,W[,C]) are multiples of `multiple`."""
+    h, w = img.shape[:2]
+    pads = [(-h % multiple, 0), (-w % multiple, 0)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, pads)
+
+
+def normalize_image_np(img: np.ndarray) -> np.ndarray:
+    """[0,1] RGB (H,W,3) -> ImageNet-normalised float32."""
+    return (img.astype(np.float32) - _MEAN_NP) / _STD_NP
+
+
+# -- PNG ----------------------------------------------------------------
+
+def _png_chunks(data: bytes, path: str):
+    """(type, payload) of each chunk, CRCs checked, up to IEND."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    while pos + 12 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if len(payload) != length or zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"{path}: corrupt {kind!r} chunk")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+
+
+def _unfilter(raw: bytes, rows: int, stride: int, bpp: int,
+              path: str) -> np.ndarray:
+    lib = build.load(build.PNG_LIB, {"decnet_png_unfilter": [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p]}, restype=ctypes.c_int64)
+    out = np.empty((rows, stride), np.uint8)
+    bad = lib.decnet_png_unfilter(raw, rows, stride, bpp,
+                                  out.ctypes.data_as(ctypes.c_void_p))
+    if bad:
+        raise ValueError(f"{path}: row {bad - 1} has an unknown filter type")
+    return out
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """The samples of a PNG file's bytes as stored: (H,W) for gray, else
+    (H,W,C) with C 2 / 3 / 4 (gray+alpha, RGB, RGBA) in file order;
+    uint8 or uint16."""
+    header, idat = None, []
+    for kind, payload in _png_chunks(data, path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, comp, filt, interlace = header
+    if ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {ctype} (palette) is not "
+                         f"supported; gray, gray+alpha, RGB and RGBA are")
+    if depth not in (8, 16):
+        raise ValueError(f"{path}: PNG bit depth {depth} is not supported; "
+                         f"8 and 16 are")
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG files are not supported")
+    if comp or filt:
+        raise ValueError(f"{path}: unknown PNG compression / filter method")
+    ch, nbytes = _PNG_CHANNELS[ctype], depth // 8
+    stride = w * ch * nbytes
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"{path}: image data holds {len(raw)} bytes, "
+                         f"{h * (stride + 1)} expected")
+    rows = _unfilter(raw, h, stride, ch * nbytes, path)
+    img = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
+    img = img.reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+def read_png(path: str) -> np.ndarray:
+    """`decode_png` of a file."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """PNG bytes of a uint8 (H,W) / (H,W,3) / (H,W,4) or uint16 (H,W)
+    image: every scanline filter 0 (None), zlib at `level`."""
+    img = np.asarray(img)
+    if img.dtype == np.uint16 and img.ndim == 2:
+        depth, ctype = 16, 0
+        rows = img.astype(">u2").view(np.uint8).reshape(img.shape[0], -1)
+    elif img.dtype == np.uint8 and (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] in (3, 4))):
+        depth = 8
+        ctype = 0 if img.ndim == 2 else {3: 2, 4: 6}[img.shape[2]]
+        rows = img.reshape(img.shape[0], -1)
+    else:
+        raise ValueError(f"cannot write a PNG of {img.dtype} {img.shape}: "
+                         f"uint8 gray/RGB/RGBA or uint16 gray")
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray):
+    """`encode_png` into a file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+# -- the readers the datasets and the demo use --------------------------
+
+def _refuse_jpeg(path: str):
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        raise NotImplementedError(f"{path}: {_JPEG_REFUSAL}")
+
+
 def read_image(path: str) -> np.ndarray:
-    """RGB uint8 (H,W,3)."""
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+    """RGB uint8 (H,W,3) of a PNG file, as cv2.imread(IMREAD_COLOR) then
+    BGR->RGB reads it: gray replicated, alpha dropped, 16-bit samples cut
+    to their high byte."""
+    _refuse_jpeg(path)
+    img = read_png(path)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    elif img.shape[2] == 2:
+        img = np.repeat(img[..., :1], 3, axis=2)
+    else:
+        img = img[..., :3]
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    return np.ascontiguousarray(img)
+
+
+def read_disparity_png(path: str, scale: float = 256.0) -> np.ndarray:
+    """KITTI / DrivingStereo uint16 disparity PNG, value / scale, f32."""
+    _refuse_jpeg(path)
+    return read_png(path).astype(np.float32) / scale
+
+
+def write_submission_png(path: str, disp: np.ndarray,
+                         ori_h: Optional[int] = None,
+                         ori_w: Optional[int] = None):
+    """uint16 PNG of clip(disp * 256, 0, 65535), cropped to the bottom-right
+    ori_h x ori_w (the padding was added top-left)."""
+    out = np.clip(np.asarray(disp) * 256.0, 0, 65535).astype(np.uint16)
+    if ori_h is not None:
+        out = out[-ori_h:, -ori_w:]
+    write_png(path, out)
 
 
 def read_calib_ndisp(path: str, align: int = 27) -> Optional[int]:
@@ -52,8 +233,57 @@ def read_calib_ndisp(path: str, align: int = 27) -> Optional[int]:
     return int(math.ceil(n / align) * align)
 
 
-def write_submission_png(path: str, disp: np.ndarray):
-    """uint16 PNG of clip(disp * 256, 0, 65535)."""
-    from PIL import Image
-    out = np.clip(disp * 256.0, 0, 65535).astype(np.uint16)
-    Image.fromarray(out).save(path)
+# -- PFM ----------------------------------------------------------------
+
+def read_pfm(path: str) -> Tuple[np.ndarray, float]:
+    """Portable float map (SceneFlow's disparity format): (data, scale)."""
+    with open(path, "rb") as f:
+        header = f.readline().rstrip().decode()
+        if header == "PF":
+            color = True
+        elif header == "Pf":
+            color = False
+        else:
+            raise ValueError(f"{path}: not a PFM file")
+        dims = f.readline().decode()
+        m = re.match(r"^(\d+)\s(\d+)\s*$", dims)
+        if not m:
+            raise ValueError(f"{path}: malformed PFM header")
+        width, height = int(m.group(1)), int(m.group(2))
+        scale = float(f.readline().rstrip().decode())
+        endian = "<" if scale < 0 else ">"
+        data = np.fromfile(f, endian + "f")
+    shape = (height, width, 3) if color else (height, width)
+    return np.flipud(data.reshape(shape)).copy(), abs(scale)
+
+
+def write_pfm(path: str, data: np.ndarray, scale: float = 1.0):
+    data = np.asarray(data, np.float32)
+    color = data.ndim == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{data.shape[1]} {data.shape[0]}\n".encode())
+        f.write(f"{-scale}\n".encode())  # little-endian
+        np.flipud(data).astype("<f").tofile(f)
+
+
+def decode_pfm(data: bytes, max_pixels: int = 1 << 26) -> np.ndarray:
+    """PFM bytes decoded by `native/decnet_native.cc`: (H,W) or (H,W,3)
+    float32."""
+    pf = ctypes.POINTER(ctypes.c_float)
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib = build.load(build.HOST_LIB, {"decnet_decode_pfm": [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, pf, pi, pi, pi]},
+        restype=ctypes.c_int)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty(max_pixels, np.float32)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.decnet_decode_pfm(
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(data),
+        out.ctypes.data_as(pf), ctypes.byref(h), ctypes.byref(w),
+        ctypes.byref(c))
+    if rc != 0:
+        raise ValueError(f"PFM decode failed rc={rc}")
+    n = h.value * w.value * c.value
+    shape = (h.value, w.value, 3) if c.value == 3 else (h.value, w.value)
+    return out[:n].reshape(shape).copy()

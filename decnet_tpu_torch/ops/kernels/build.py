@@ -4,10 +4,11 @@ of the demo's detail masks with `g++`, and load them with ctypes.
 Each `csrc/<name>.cu` exposes `extern "C"` launchers that return a
 cudaError_t.  It is compiled at first use, for sm_90a, into a shared
 library under `build/decnet_tpu_torch/` at the root of the checkout (listed
-in .gitignore).  The library named `decnet_native` is
-`native/decnet_native.cc`, compiled by g++ for this host's baseline
-instruction set (the prebuilt `native/libdecnet_native.so` was compiled
-with -march=native elsewhere and is not loaded).  A library's file name
+in .gitignore).  The host libraries are compiled by g++ for this host's
+baseline instruction set: `decnet_native` is `native/decnet_native.cc`
+(the prebuilt `native/libdecnet_native.so` was compiled with
+-march=native elsewhere and is not loaded), `png_unfilter` is
+`csrc/host/png_unfilter.cc`.  A library's file name
 carries a hash of its sources and flags, so an edited source is rebuilt
 and a stale library never loads.  Nothing here touches PyTorch's C++
 headers: a build takes seconds.
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence
@@ -30,12 +32,17 @@ BUILD_DIR = ROOT / "build" / "decnet_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_LIB = "decnet_native"
-HOST_SRC = ROOT / "native" / "decnet_native.cc"
+PNG_LIB = "png_unfilter"
+HOST_SOURCES = {HOST_LIB: ROOT / "native" / "decnet_native.cc",
+                PNG_LIB: CSRC_DIR / "host" / "png_unfilter.cc"}
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
 
 # Loaded libraries by kernel name: loading is idempotent and a process
-# never unloads a shared library, so one handle per name is kept.
+# never unloads a shared library, so one handle per name is kept.  The
+# loader's worker threads may all reach a host library first at once: the
+# lock lets one of them build it.
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -60,18 +67,18 @@ def nvcc_path() -> str:
 def gxx_path() -> str:
     found = shutil.which("g++")
     if not found:
-        raise RuntimeError("g++ not found: the host mask library is built "
-                           "from native/decnet_native.cc at first use")
+        raise RuntimeError("g++ not found: the host libraries (detail masks, "
+                           "PNG unfiltering) are built at first use")
     return found
 
 
 def _source(name: str) -> Path:
-    return HOST_SRC if name == HOST_LIB else CSRC_DIR / f"{name}.cu"
+    return HOST_SOURCES.get(name, CSRC_DIR / f"{name}.cu")
 
 
 def _command(name: str, out: Path) -> List[str]:
-    if name == HOST_LIB:
-        return [gxx_path(), *HOST_FLAGS, "-o", str(out), str(HOST_SRC)]
+    if name in HOST_SOURCES:
+        return [gxx_path(), *HOST_FLAGS, "-o", str(out), str(_source(name))]
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(_source(name))]
 
 
@@ -79,7 +86,7 @@ def library_path(name: str) -> Path:
     """The library's path; its name hashes the source, the headers of
     csrc/ it may include, and the flags."""
     h = hashlib.sha1(_source(name).read_bytes())
-    if name == HOST_LIB:
+    if name in HOST_SOURCES:
         h.update(" ".join(HOST_FLAGS).encode())
     else:
         for header in sorted(CSRC_DIR.glob("*.cuh")):
@@ -123,15 +130,17 @@ def load(name: str, signatures: Dict[str, list],
          restype=ctypes.c_int) -> ctypes.CDLL:
     """The loaded library `name`, building it first if needed.
 
-    `signatures` maps each function to its ctypes argument types; every
-    function returns `restype` (the kernels' launchers a C int, a
-    cudaError_t)."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        (res,) = build([name])
-        lib = ctypes.CDLL(str(res.path))
+    `signatures` maps each function to its ctypes argument types; each
+    of them returns `restype` (the kernels' launchers a C int, a
+    cudaError_t).  They are set on every call, so callers of different
+    functions of one library may declare only their own."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            (res,) = build([name])
+            lib = ctypes.CDLL(str(res.path))
+            _LOADED[name] = lib
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
-        _LOADED[name] = lib
     return lib

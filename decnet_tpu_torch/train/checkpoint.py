@@ -10,7 +10,10 @@ resumable train state per saved step, `<dir>/<step>/params.npz` (as above)
 and `<dir>/<step>/train_state.pt` (the optimizer's state_dict and the
 step), the newest `keep` of them kept.  Every save also refreshes
 `<dir>/params.npz` and `<dir>/config.json`, the run's newest weights for
-serving.  An Orbax directory is not read."""
+serving.  An Orbax directory is not read.
+
+`load_torch_checkpoint` imports a reference `.pkl` checkpoint
+(`train/torch_import.py`)."""
 from __future__ import annotations
 
 import json
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from decnet_tpu_torch.config import Config
+from decnet_tpu_torch.train import torch_import
 from decnet_tpu_torch.weights import flax_arrays_from_model, load_flax_variables
 
 PARAMS_FILE = "params.npz"
@@ -102,3 +106,10 @@ class CheckpointManager:
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
         return state
+
+
+def load_torch_checkpoint(path: str, model: torch.nn.Module,
+                          num_stage: int = 4) -> dict:
+    """Fill `model` from a reference `.pkl` torch checkpoint; returns the
+    import report (copied / missing / unmatched), which it also prints."""
+    return torch_import.load_reference_checkpoint(path, model, num_stage)

@@ -228,3 +228,42 @@ def test_warp_plans_at_the_model_shapes():
             kwarp.warp_plan(B, C, H, W, 2).cg)
            for B, C, H, W, _ in STAGES]
     assert got == [(5, 15), (2, 12), (1, 8), (2, 36), (1, 24), (1, 8)]
+
+
+def suite_stages(B, H, W, D):
+    """(B, C, H, W, D) of the three fine stages of a padded H x W input."""
+    return [(B, 72, H // 9, W // 9, D // 9), (B, 24, H // 3, W // 3, D // 3),
+            (B, 8, H, W, D)]
+
+
+# the benchmark suites' shapes: KITTI served (375x1242 padded to
+# 378x1242, max_disp 216) and its training crop (B = 8 of 270x513),
+# Middlebury-H (999x1485, ndisp 289 bucketed to 297) and Middlebury-F
+# (1998x2970, 810)
+SUITES = {"kitti": suite_stages(1, 378, 1242, 216),
+          "kitti_train": suite_stages(8, 270, 513, 216),
+          "middlebury_h": suite_stages(1, 999, 1485, 297),
+          "middlebury_f": suite_stages(1, 1998, 2970, 810)}
+
+
+@pytest.mark.parametrize("suite", SUITES)
+def test_plans_at_the_suites_shapes(suite):
+    """Every kernel has a launch plan at the suites' shapes that covers
+    each row once within the shared memory; the forward moments split
+    rows into segments at Middlebury-H's stage 3 and at KITTI's stage 1
+    (B = 1)."""
+    for B, C, H, W, D in SUITES[suite]:
+        for kind, plan_fn in PLANS.items():
+            for esize in (2, 4):
+                plan = plan_fn(B, C, H, W, D, esize)
+                assert plan.segs * plan.tile >= W > (plan.segs - 1) * plan.tile
+                assert plan.smem <= spamat.SMEM_MAX
+        wp = kwarp.warp_plan(B, C, H, W, 2)
+        assert wp.groups * wp.cg >= C > (wp.groups - 1) * wp.cg
+    stage3 = {k: spamat.moments_plan(*v[2], 2) for k, v in SUITES.items()}
+    assert (stage3["middlebury_h"].segs, stage3["middlebury_h"].tile) == \
+        (2, 743)
+    assert spamat.moments_plan(*SUITES["kitti"][0], 2).segs == 4
+    assert spamat.dtar_plan(*SUITES["kitti"][2], 2).tile == 621
+    assert [spamat.candidate_lanes(d) for d in (33, 99, 297, 810)] == \
+        [2, 4, 16, 32]
