@@ -28,13 +28,25 @@ advance.  The windowed moments are held against their plain version at
 that path's shapes too, and the windowed moments, dRef and dTar at the
 s2d training step's.  The moments and the warp are also held at the
 benchmark suites' shapes (KITTI served, Middlebury-H, whose forward splits
-rows, and Middlebury-F), dRef and dTar at KITTI's training crop.
+rows, and Middlebury-F), dRef and dTar at KITTI's training crop, and
+the moments and warp at the bench's batch (B = 4).  It runs
+`decnet_tpu_torch.cli.bench` at its full size (the s2d, faithful-repacked
+and faithful variants at B = 4 of 540x972, bf16), printing its JSON line
+and holding the repacked variant against the faithful one (the timed
+models' predictions, and ckpt_faithful's trained weights repacked to
+s2d_stages 2 against the checkpoint in faithful form, in f32, and in bf16
+each form against the f32 answer), and serves
+the flagship configuration (s2d_stages 2, learned quantile masks, window
+12) on fresh weights, kernel path against plain path.
 Then it makes the suites' files in a temporary directory (SceneFlow packs
 of the eval phase's 96 scenes, KITTI packs, Middlebury-H pickles of two
 ndisp) and drives the data path: `cli.eval` of ckpt_faithful on each suite
 (SceneFlow held to the faithful anchor's band, KITTI and Middlebury kernel
 path against plain path, submission PNGs read back), one Middlebury-F
-forward for its time and memory, `cli.train` from the packs (the step
+forward for its time and memory, `cli.eval --exec_s2d 1` on the SceneFlow
+packs against the plain run, a `train.packed_exec` frozen-BN step against
+the faithful one (per gradient leaf, rejecting a planted fault),
+`cli.train` from the packs (the step
 checks with planted faults, the host's wait for batches), from KITTI and
 from the host synthetic dataset, ckpt_faithful in the reference's `.pkl`
 form served bit-equal through `--resume`, and `cli.demo` on PNG scenes
@@ -1578,6 +1590,347 @@ def demo_cli_phase(torch, counters, sf_root, tmp):
     return out
 
 
+# the bench's batch (cli/bench.py: B = 4 of 540x972, bf16) and the
+# flagship configuration of __graft_entry__.py:20-41, rebuilt here
+BENCH_B = 4
+FLAGSHIP = dict(max_disp=216, base_channels=8, num_stage=4, down_scale=3,
+                cost_func="cor", use_detail=True, thold=0.9,
+                dtype="bfloat16", s2d_fine=True, s2d_stages=2,
+                match_window=12, cand_fallback=True, thold_mode="quantile",
+                detail_density=0.25)
+#   the flagship is served on fresh weights from --seed: an untrained
+#   detail head's logits saturate the sigmoid, where the strict quantile
+#   cut keeps no pixel, so its last kernel is scaled by this factor (as the
+#   CPU tests do) to give the masks their target density
+FLAGSHIP_HEAD_SCALE = 0.05
+EXEC_S2D_EPE_TOL = 0.02   # px, cli.eval mean EPE with and without --exec_s2d
+#   ckpt_faithful in bf16, the packed form's mean |delta| from the f32
+#   faithful answer over the faithful bf16 form's: a wrong packed head
+#   moves the packed form away from the answer, bf16 moves both alike
+CKPT_BF16_RATIO = 1.25
+PACKED_STEPS = 3          # timed frozen-BN steps, each form, after a warm-up
+#   packed_exec step vs faithful step, per leaf of the faithful parameters:
+#   |g_packed - g_faithful| / (|g_faithful| + PACKED_LEAF_FLOOR |G|), G the
+#   whole faithful gradient, of the worst leaf.  A leaf the packed graph
+#   fails to reach reads ~1; the floor keeps a leaf whose gradient is
+#   ~0 by construction (a bias a softmax cancels) at bf16's noise over |G|
+#   Sound run (NVIDIA H100 80GB HBM3, B=8 of 162x486, bf16): 0.1421;
+#   refine_1's kernels cut from the gradient: 0.9978.  0.4 sits near the
+#   geometric middle.
+PACKED_LEAF_RTOL = 0.4
+PACKED_LEAF_FLOOR = 1e-3
+PACKED_FAULT_HEADS = ("refine_1", "soft_att_1")   # stage 2's packed heads
+
+
+def bench_phase(torch, counters):
+    """`cli.bench.main` at its full size (B = 4 of 540x972, bf16, the s2d,
+    faithful and faithful_nhwc variants), its JSON line printed; each
+    variant's 3 moments and 3 warps a forward; then the faithful variant
+    (the faithful weights repacked to s2d_stages 2) against faithful_nhwc
+    (the same weights in faithful form), each the prediction of the model
+    the bench timed on the bench's inputs; and the same repack of
+    ckpt_faithful's trained weights (`s2d_exec_model`, stages 2) against
+    the checkpoint in faithful form on those inputs, in f32 (mean |delta|
+    of the final disparity) and in bf16 (each form's mean |delta| from
+    the f32 faithful answer, the packed form's no more than
+    CKPT_BF16_RATIO times the faithful form's)."""
+    from decnet_tpu_torch.cli import bench
+    from decnet_tpu_torch.models.repack import s2d_exec_model
+    from decnet_tpu_torch.weights import load_checkpoint
+    zero_launches(counters)
+    result = bench.main([])
+    launches = count_launches(counters)
+    rec = result["record"]
+    kind = torch.cuda.get_device_name(0)
+    if "backend=cuda" not in rec["unit"] or kind not in rec["unit"]:
+        fail(f"bench: unit {rec['unit']!r} does not name the card")
+    for mode, r in result["variants"].items():
+        for k in ("spamat_moments", "warp"):
+            if r["launches"][k] != 3 * r["forwards"]:
+                fail(f"bench {mode}: {k} launched {r['launches'][k]} times "
+                     f"in {r['forwards']} timed forwards")
+        print(f"  {mode}: {r['pairs_per_sec']:.3f} pairs/s (rounds "
+              + ", ".join(f"{x:.3f}" for x in r["rounds_pairs_per_sec"])
+              + f"), peak {r['peak_mem_mb']} MiB, "
+              f"{r['flops_per_pair'] / 1e9:.2f} GFLOP a pair counted",
+              flush=True)
+
+    def held(where, packed, faithful):
+        delta = (packed - faithful).abs()
+        mean_delta = float(delta.mean())
+        if not torch.isfinite(packed).all():
+            fail(f"bench {where}: non-finite disparity")
+        print(f"  {where} (repacked, s2d_stages 2) vs faithful form: mean "
+              f"|delta disp| {mean_delta:.5g} px, max "
+              f"{float(delta.max()):.4g}", flush=True)
+        if not mean_delta <= SERVE_MEAN_TOL:
+            fail(f"bench {where}: repacked vs faithful form mean |delta "
+                 f"disp| {mean_delta:.4g} px > {SERVE_MEAN_TOL}")
+        return mean_delta
+
+    v = result["variants"]
+    fresh = held("faithful", v["faithful"]["pred"],
+                 v["faithful_nhwc"]["pred"])
+    inputs = bench.make_inputs(bench.CARD["H"], bench.CARD["W"],
+                               bench.CARD["batch"], DEV)[:4]
+    preds = {}
+    for dtype in ("float32", "bfloat16"):
+        model = load_checkpoint(CKPT, device=DEV, dtype=dtype)
+        for form, m in (("faithful", model),
+                        ("packed", s2d_exec_model(model, stages=2))):
+            if m.cfg.s2d_stages != (2 if form == "packed" else 1):
+                fail(f"bench ckpt_faithful {form}: s2d_stages "
+                     f"{m.cfg.s2d_stages}")
+            with torch.inference_mode():
+                preds[dtype, form] = m(*inputs)["preds"][-1].float()
+            del m
+        del model
+    # in f32 the repack is exact up to summation order: the trained
+    # weights' packed heads held like the fresh ones
+    trained = held("ckpt_faithful f32", preds["float32", "packed"],
+                   preds["float32", "faithful"])
+    # in bf16 (the checkpoint's dtype) each form rounds its own sums and
+    # stage 3's candidates follow stage 2's rounded disparity, so the two
+    # forms part by about bf16's own error: each is held against the f32
+    # answer, the packed form no further from it than CKPT_BF16_RATIO
+    # times the faithful form
+    exact = preds["float32", "faithful"]
+    dist = {form: float((preds["bfloat16", form] - exact).abs().mean())
+            for form in ("faithful", "packed")}
+    between = float((preds["bfloat16", "packed"]
+                     - preds["bfloat16", "faithful"]).abs().mean())
+    ratio = dist["packed"] / dist["faithful"]
+    print(f"  ckpt_faithful bf16: mean |delta disp| from the f32 answer, "
+          f"faithful form {dist['faithful']:.5g} px, packed "
+          f"{dist['packed']:.5g} (ratio {ratio:.4g}, tol "
+          f"{CKPT_BF16_RATIO}); between the forms {between:.5g}",
+          flush=True)
+    if not (torch.isfinite(preds["bfloat16", "packed"]).all()
+            and ratio <= CKPT_BF16_RATIO):
+        fail(f"bench ckpt_faithful bf16: the packed form is {ratio:.4g}x "
+             f"the faithful form's distance from the f32 answer")
+    del preds, exact
+    torch.cuda.empty_cache()
+    return {"record": rec, "launches": launches,
+            "faithful_vs_nhwc_mean_abs_delta_px": fresh,
+            "ckpt_faithful_packed_mean_abs_delta_px": trained,
+            "ckpt_faithful_bf16": dict(dist, between=between, ratio=ratio),
+            "variants": {m: {k: x for k, x in r.items() if k != "pred"}
+                         for m, r in v.items()}}
+
+
+def serve_flagship_phase(torch, counters, gen):
+    """__graft_entry__.py's flagship configuration from the port's
+    ModelConfig (s2d_stages 2, learned quantile detail masks, window 12,
+    cand_fallback) on fresh seeded weights: one 540x972 request through
+    `cli.demo.predict` after a warm-up, its latency and launches, and the
+    kernel path against the plain path."""
+    from decnet_tpu_torch.cli.demo import predict
+    from decnet_tpu_torch.config import ModelConfig
+    from decnet_tpu_torch.data import io as dio
+    from decnet_tpu_torch.data.synthetic import synthetic_pair
+    from decnet_tpu_torch.models import DecNet
+    from decnet_tpu_torch.nn.heads import RefinementS2D
+    torch.manual_seed(int(gen.initial_seed()))
+    model = DecNet(ModelConfig(**FLAGSHIP))
+    if not isinstance(model.refine_1, RefinementS2D):
+        fail("serve_flagship: stage 2 is not packed")
+    with torch.no_grad():
+        for name, m in model.named_children():
+            if name.startswith("detail_"):
+                m.head1.conv.weight.mul_(FLAGSHIP_HEAD_SCALE)
+    model = model.to(DEV).eval()
+    H, W, D = SERVE
+    warm, (left, right, gt, valid) = [synthetic_pair(H, W, gen, DEV)
+                                      for _ in range(2)]
+    predict(model, warm[0], warm[1], None, None, D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    t = time.perf_counter()
+    pred = predict(model, left, right, None, None, D)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = check_forward_launches(counters, 1, "serve_flagship")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if pred.shape != (1, H, W) or not torch.isfinite(pred).all():
+        fail(f"serve_flagship: prediction {tuple(pred.shape)} not finite")
+    model.use_kernels = False
+    plain = predict(model, left, right, None, None, D)
+    with torch.no_grad():
+        lp, rp = (dio.normalize_image(x) for x in (left, right))
+        density = [float(m.mean()) for m in
+                   model(lp, rp)["masks_used"]]
+    model.use_kernels = True
+    if count_launches(counters) != launches:
+        fail("serve_flagship: the plain path launched a kernel")
+    delta = (plain - pred).abs()
+    mean_delta = float(delta.mean())
+    epe = float((pred - gt).abs()[valid].mean())
+    print(f"  flagship request {ms:.3f} ms, peak {peak_mb:.1f} MiB, mask "
+          f"density " + ", ".join(f"{d:.3f}" for d in density)
+          + f"; kernel vs plain mean |delta disp| {mean_delta:.5g} px; EPE "
+          f"of fresh weights {epe:.4f}", flush=True)
+    if not mean_delta <= SERVE_MEAN_TOL:
+        fail(f"serve_flagship kernel vs plain path: mean |delta disp| "
+             f"{mean_delta:.4g} px > {SERVE_MEAN_TOL}")
+    del model
+    torch.cuda.empty_cache()
+    return {"latency_ms": ms, "peak_mem_mb": peak_mb, "launches": launches,
+            "mask_density": density, "plain_mean_abs_delta_px": mean_delta,
+            "epe_px": epe}
+
+
+def exec_s2d_phase(torch, spamat, counters, roots, out_dir, plain_epe):
+    """`cli.eval --exec_s2d 1` of ckpt_faithful on the SceneFlow packs (its
+    s2d twin, s2d_stages 1, as JAX's CLI runs it) against the same run
+    without it; then `train.packed_exec`: the train CLI's frozen-BN step
+    of the faithful recipe through its packed twin (s2d_stages 2) against
+    the faithful frozen-BN step on one batch (loss, gradient cosine, the
+    worst leaf's relative gradient error), which must reject a packed
+    step with one stage-2 head's kernels cut from the gradient
+    (PACKED_FAULT_HEADS); and a few timed
+    steps of each form with their launches."""
+    from decnet_tpu_torch.cli import eval as teval
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.train.step import loss_and_grads, train_step
+    zero_launches(counters)
+    res = teval.main(["--dataset", "sceneflow", "--root", roots["sceneflow"],
+                      "--test_split", "test", "--batch_size", str(SF_BATCH),
+                      "--resume", CKPT, "--num_workers", "4", "--exec_s2d",
+                      "1", "--save2where", os.path.join(out_dir, "exec_s2d"),
+                      "--device", DEV])
+    eval_launches = check_forward_launches(counters, len(res["max_disp"]),
+                                           "exec_s2d eval")
+    eval_delta = abs(res["mean_epe"] - plain_epe)
+    print(f"  cli.eval --exec_s2d 1: mean EPE {res['mean_epe']:.5g} against "
+          f"{plain_epe:.5g} without (|delta| {eval_delta:.4g}, tol "
+          f"{EXEC_S2D_EPE_TOL}); launches {json.dumps(eval_launches)}",
+          flush=True)
+    if not eval_delta <= EXEC_S2D_EPE_TOL:
+        fail(f"exec_s2d: EPE {res['mean_epe']:.5g} vs {plain_epe:.5g}")
+
+    ckpt_out = os.path.join(ROOT, "build", "decnet_tpu_torch",
+                            "smoke_ckpt_packed")
+    run = tcli.prepare(["--config", os.path.join(CKPT, "config.json"),
+                        "--dataset", "synthetic", "--init_from", CKPT,
+                        "--ckpt_dir", ckpt_out, "--device", DEV, "--set",
+                        "train.packed_exec=1", "--set", "train.freeze_bn=1"])
+    cfg, model = run.cfg, run.state.model
+    if run.packed is None or not run.freeze_bn():
+        fail("packed_exec: the run has no packed frozen step")
+    b = next(run.stream)
+    names = [n for n, _ in model.named_parameters()]
+
+    def step(packed):
+        lg, grads = loss_and_grads(model, b, cfg, True, packed)
+        return float(lg["total"]), [g.detach().float().clone()
+                                    for g in grads]
+
+    def against(lk, gk, lf, gf):
+        """(loss relative error, whole-gradient cosine, the worst leaf's
+        |g - g_faithful| / (|g_faithful| + PACKED_LEAF_FLOOR |G_faithful|)
+        and its name), and the leaves' readings, worst first."""
+        whole = float(torch.cat([y.flatten() for y in gf]).double().norm())
+        leaves = []
+        for n, x, y in zip(names, gk, gf):
+            ny, nd = float(y.double().norm()), float((x - y).double().norm())
+            leaves.append((nd / (ny + PACKED_LEAF_FLOOR * whole), n,
+                           ny / whole, nd / whole))
+        leaves.sort(reverse=True)
+        cos = float(torch.nn.functional.cosine_similarity(
+            torch.cat([x.flatten() for x in gk]).double(),
+            torch.cat([y.flatten() for y in gf]).double(), dim=0))
+        return (abs(lk - lf) / abs(lf), cos, leaves[0][0], leaves[0][1],
+                leaves)
+
+    def show(leaves, k=6):
+        return "; ".join(f"{n} {r:.4g} (|g| {g:.3g}, |d| {d:.3g} of |G|)"
+                         for r, n, g, d in leaves[:k])
+
+    def accepted(rel, cos, worst, lk):
+        return (math.isfinite(lk) and rel <= TRAIN_LOSS_RTOL
+                and cos >= TRAIN_GRAD_COS and worst <= PACKED_LEAF_RTOL)
+
+    lf, gf = step(None)
+    # the faithful step again: cuDNN's run-to-run order
+    floor = against(*step(None), lf, gf)
+    lp, gp = step(run.packed)
+    rel, cos, worst, leaf, leaves = against(lp, gp, lf, gf)
+    print(f"  packed_exec frozen-BN step vs faithful frozen-BN step: loss "
+          f"{lp:.6g} vs {lf:.6g} (rel {rel:.4g}), gradient cosine "
+          f"{cos:.7g}, worst leaf {leaf} {worst:.4g} (tol "
+          f"{PACKED_LEAF_RTOL}); faithful step twice: worst leaf {floor[3]} "
+          f"{floor[2]:.4g}\n    worst leaves: {show(leaves)}", flush=True)
+    if not accepted(rel, cos, worst, lp):
+        fail(f"packed_exec: loss rel {rel:.3e}, gradient cosine {cos:.6f}, "
+             f"worst leaf {leaf} {worst:.4g}")
+    # planted faults: one stage-2 head's kernels in the packed twin cut
+    # from the gather's graph (their values kept), so the forward and the
+    # loss are the sound ones and only that head's faithful leaves lose
+    # their gradient; the check must reject each.  refine_1 carries ~half
+    # of |G|, soft_att_1 under one per cent, which the whole-gradient cosine
+    # alone would not see
+    twin, apply_fn = run.packed
+    faults = {}
+    for head in PACKED_FAULT_HEADS:
+        cut = {k for k, t in twin.state_dict().items()
+               if k.startswith(head + ".") and t.dim() == 4}
+        if not cut:
+            fail(f"packed_exec: the twin has no {head} kernels")
+        planted = (twin, lambda m, cut=cut: {
+            k: v.detach() if k in cut else v for k, v in apply_fn(m).items()})
+        lx, gx = step(planted)
+        f_rel, f_cos, f_worst, f_leaf, f_leaves = against(lx, gx, lf, gf)
+        del gx
+        rejected = not accepted(f_rel, f_cos, f_worst, lx)
+        faults[head] = {"loss_rel": f_rel, "grad_cos": f_cos,
+                        "worst_leaf": (f_leaf, f_worst),
+                        "rejected": rejected}
+        print(f"  packed_exec planted fault ({head}'s {len(cut)} kernels "
+              f"without gradient): loss rel {f_rel:.4g}, gradient cosine "
+              f"{f_cos:.7g}, worst leaf {f_leaf} {f_worst:.4g} -> "
+              f"{'rejected' if rejected else 'passed'}\n    worst leaves: "
+              f"{show(f_leaves, 3)}", flush=True)
+        if not rejected:
+            fail(f"packed_exec: the check passed with {head}'s kernels cut "
+                 f"from the gradient")
+    del gf, gp
+    batches = [next(run.stream) for _ in range(PACKED_STEPS + 1)]
+    times, launches = {}, {}
+    for form, packed in (("faithful", None), ("packed", run.packed)):
+        train_step(run.state, batches[0], cfg, True, packed)
+        torch.cuda.synchronize()
+        zero_launches(counters)
+        ms = []
+        for bb in batches[1:]:
+            t = time.perf_counter()
+            logs = train_step(run.state, bb, cfg, True, packed)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if not math.isfinite(float(logs["total"])):
+                fail(f"packed_exec {form} step: non-finite loss")
+        launches[form] = count_launches(counters)
+        if any(n != 3 * PACKED_STEPS for n in launches[form].values()):
+            fail(f"packed_exec {form}: launches {launches[form]} in "
+                 f"{PACKED_STEPS} steps")
+        times[form] = ms
+        print(f"  frozen-BN steps, {form}: "
+              + ", ".join(f"{x:.2f}" for x in ms) + " ms, launches "
+              + json.dumps(launches[form]), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return {"eval": {k: res[k] for k in ("mean_epe", "mean_d1", "epe",
+                                         "max_disp")},
+            "eval_plain_epe": plain_epe, "eval_abs_delta": eval_delta,
+            "eval_launches": eval_launches, "loss_rel": rel,
+            "grad_cos": cos, "worst_leaf": (leaf, worst),
+            "faithful_twice_worst_leaf": (floor[3], floor[2]),
+            "worst_leaves": leaves[:6],
+            "planted_faults": faults,
+            "step_ms": times, "launches": launches}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -1644,6 +1997,10 @@ def main():
         windowed = windowed_parity(torch, spamat, gen, flush_buf)
         windowed_train = windowed_parity(torch, spamat, gen, flush_buf,
                                          TRAIN_WINDOWED_STAGES, TRAIN_B)
+        # the bench's batch (cli/bench.py, B = 4 of 540x972)
+        print("  -- bench batch", flush=True)
+        parity_bench = kernel_parity(torch, spamat, kwarp, gen, flush_buf,
+                                     STAGES, BENCH_B)
         # the benchmark suites' shapes (B = 1): KITTI, Middlebury-H (the
         # forward splits rows at stage 3), Middlebury-F
         suite_parity = {}
@@ -1651,7 +2008,7 @@ def main():
             print(f"  -- {suite}", flush=True)
             suite_parity[suite] = kernel_parity(torch, spamat, kwarp, gen,
                                                 flush_buf, stages)
-    phase("kernel_parity", t0, shapes=len(STAGES) + len(TRAIN_STAGES),
+    phase("kernel_parity", t0, shapes=2 * len(STAGES) + len(TRAIN_STAGES),
           suite_shapes=sum(len(v) for v in SUITE_STAGES.values()),
           windowed_shapes=len(WINDOWED_STAGES) + len(TRAIN_WINDOWED_STAGES),
           dtypes=2, timing_floor_ms=f"{floor_ms:.4g}",
@@ -1811,6 +2168,36 @@ def main():
           plain_p999_abs_delta_px=f"{s2d['plain_p999_abs_delta_px']:.5g}",
           epe_px=",".join(f"{e:.4f}" for e in s2d["epe_px"]))
 
+    # -- 7b. cli/bench.py at its full size, its three variants
+    t0 = time.perf_counter()
+    bench_run = bench_phase(torch, counters)
+    br = bench_run["record"]
+    phase("bench", t0, batch=BENCH_B, size=f"{H}x{W}", max_disp=D,
+          pairs_per_sec=br["value"],
+          faithful_pairs_per_sec=br["faithful_pairs_per_sec"],
+          faithful_nhwc_pairs_per_sec=br["faithful_nhwc_pairs_per_sec"],
+          rounds=json.dumps(br["rounds_pairs_per_sec"]),
+          peak_mem_mb=json.dumps(br["peak_mem_mb"]),
+          launches=json.dumps(bench_run["launches"]),
+          faithful_vs_nhwc_mean_abs_delta_px="{:.5g}".format(
+              bench_run["faithful_vs_nhwc_mean_abs_delta_px"]),
+          ckpt_faithful_f32_packed_mean_abs_delta_px="{:.5g}".format(
+              bench_run["ckpt_faithful_packed_mean_abs_delta_px"]),
+          ckpt_faithful_bf16_from_f32_px="{faithful:.5g}/{packed:.5g}"
+          "(ratio {ratio:.4g}, between {between:.5g})".format(
+              **bench_run["ckpt_faithful_bf16"]))
+
+    # -- 7c. the flagship configuration (s2d_stages 2), one request
+    t0 = time.perf_counter()
+    flagship = serve_flagship_phase(torch, counters, gen)
+    phase("serve_flagship", t0, size=f"{H}x{W}", max_disp=D,
+          latency_ms=f"{flagship['latency_ms']:.3f}",
+          peak_mem_mb=f"{flagship['peak_mem_mb']:.1f}",
+          launches=json.dumps(flagship["launches"]),
+          mask_density=",".join(f"{d:.3f}"
+                                for d in flagship["mask_density"]),
+          plain_mean_abs_delta_px=f"{flagship['plain_mean_abs_delta_px']:.5g}")
+
     # -- 8. accuracy against the JAX anchors
     t0 = time.perf_counter()
     evals = eval_phase(torch, spamat, kwarp)
@@ -1852,6 +2239,26 @@ def main():
               middlebury_f_ms=f"{dse['middlebury_f']['ms']:.2f}",
               middlebury_f_peak_mem_mb="{:.1f}".format(
                   dse["middlebury_f"]["peak_mem_mb"]))
+        t0 = time.perf_counter()
+        exs = exec_s2d_phase(torch, spamat, counters, roots,
+                             os.path.join(tmp, "eval_out"),
+                             dse["sceneflow"]["mean_epe"])
+        phase("exec_s2d_packed_exec", t0,
+              exec_s2d_epe=f"{exs['eval']['mean_epe']:.5g}",
+              plain_epe=f"{exs['eval_plain_epe']:.5g}",
+              packed_loss_rel=f"{exs['loss_rel']:.3g}",
+              packed_grad_cos=f"{exs['grad_cos']:.7f}",
+              packed_worst_leaf="{}:{:.4g}".format(*exs["worst_leaf"]),
+              faithful_twice_worst_leaf="{}:{:.4g}".format(
+                  *exs["faithful_twice_worst_leaf"]),
+              planted_faults=",".join(
+                  "{}:cos {:.7f} worst {}:{:.4g} {}".format(
+                      k, v["grad_cos"], *v["worst_leaf"],
+                      "rejected" if v["rejected"] else "passed")
+                  for k, v in exs["planted_faults"].items()),
+              frozen_step_ms=json.dumps({k: [round(x, 2) for x in v]
+                                         for k, v in exs["step_ms"].items()}),
+              launches=json.dumps(exs["launches"]))
         t0 = time.perf_counter()
         dst = datasets_train_phase(torch, spamat, counters, roots)
         phase("datasets_train", t0, steps=TRAIN_DISK_STEPS, batch=b,
@@ -1913,8 +2320,11 @@ def main():
         by_path = {"train": train["launches"][name]}
         if name in launches:
             by_path = {"serve": launches[name], **by_path}
+            by_path["serve_flagship"] = flagship["launches"][name]
+            by_path["exec_s2d_eval"] = exs["eval_launches"][name]
         if name == "warp":
             by_path["train_s2d"] = train_s2d["launches"][name]
+        by_path["packed_exec_train"] = exs["launches"]["packed"][name]
         k = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1],
              "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1925,6 +2335,15 @@ def main():
             k["max_abs_err"] = max(k["max_abs_err"], max(
                 r["max_abs_err"] for r in parity_train[name]))
         kernels.append(k)
+    # the moments and the warp at the bench's batch (B = 4), with the
+    # launches of the bench's run (its three variants)
+    for name, recs in parity_bench.items():
+        kernels.append({
+            "name": f"{name}_bench_b4", "route": "cuda",
+            "source": sources[name][0], "replaces": sources[name][1],
+            "launches": bench_run["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            **summed(recs)})
     # the windowed mode of the moments kernel, at the s2d detail path's
     # shapes: its launches on that path (one request each), in the evals
     # and in the s2d training steps (times at those shapes beside)
@@ -1993,6 +2412,8 @@ def main():
                        "datasets_train": dst,
                        "reference_import": ref_import,
                        "demo_cli": demo_cli,
+                       "parity_bench": parity_bench, "bench": bench_run,
+                       "serve_flagship": flagship, "exec_s2d": exs,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,

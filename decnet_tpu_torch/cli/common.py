@@ -127,6 +127,20 @@ def _is_orbax(path: str) -> bool:
         for n in os.listdir(path))
 
 
+def load_snapshot(model: torch.nn.Module, npz: str) -> int:
+    """Fill `model` from a params snapshot (`params.npz`, its parameters
+    and BN statistics) and return its step, from the `meta.json` beside
+    it (0 without one), as decnet_tpu/cli/common.py:115-131 does."""
+    load_flax_variables(model, npz)
+    step = 0
+    meta = os.path.join(os.path.dirname(npz), "meta.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            step = int(json.load(f).get("step", 0))
+    print(f"Restored params snapshot (step {step}) from {npz}", flush=True)
+    return step
+
+
 def init_model_and_state(cfg: Config, resume: Optional[str] = None,
                          device="cuda") -> Tuple[DecNet, int]:
     """DecNet of `cfg.model` in eval mode on `device` (fresh parameters
@@ -151,13 +165,7 @@ def init_model_and_state(cfg: Config, resume: Optional[str] = None,
         step = latest
         print(f"Restored checkpoint step {step} from {resume}", flush=True)
     elif os.path.isfile(npz):
-        load_flax_variables(model, npz)
-        meta = os.path.join(os.path.dirname(npz), "meta.json")
-        if os.path.exists(meta):
-            with open(meta) as f:
-                step = int(json.load(f).get("step", 0))
-        print(f"Restored params snapshot (step {step}) from {npz}",
-              flush=True)
+        step = load_snapshot(model, npz)
     elif os.path.isfile(resume):
         load_torch_checkpoint(resume, model, cfg.model.num_stage)
     elif _is_orbax(resume):

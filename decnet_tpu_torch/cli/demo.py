@@ -9,12 +9,15 @@ this), normalise, run DecNet, crop back, and write `<scene>.png` (uint16,
 disparity * 256) into --save2where.  PNG files are read and written by
 `data/io.py`, without PIL or cv2.  Any committed checkpoint serves
 (faithful, s2d, windowed, learned detail), and so does a reference `.pkl`
-(`cli/common.py`).  --dump_intermediates and --exec_s2d are not ported
-(ROADMAP.md section 1, items 11 and 2).
+(`cli/common.py`); without --resume the model is a fresh initialisation,
+as the JAX demo's is.  --exec_s2d 1 serves a faithful checkpoint through
+its exact s2d twin (`models/repack.py::s2d_exec`: the same outputs up to
+summation order).  --dump_intermediates is not ported (ROADMAP.md
+section 1, item 11).
 
 Usage:
   python -m decnet_tpu_torch.cli.demo --root InputData/Sceneflow \
-      --save2where out/ [--resume runs/ckpt_faithful | --resume x.pkl] \
+      --save2where out/ --resume runs/ckpt_faithful [--exec_s2d 1] \
       [--max_disp 216] [--mask_source compute|wavelet] [--device cuda]
 """
 from __future__ import annotations
@@ -34,6 +37,7 @@ from decnet_tpu_torch.config import ModelConfig
 from decnet_tpu_torch.data import io as dio
 from decnet_tpu_torch.data import masks as dmasks
 from decnet_tpu_torch.models.decnet import DecNet
+from decnet_tpu_torch.models.repack import s2d_exec_model
 
 MASK_THOLD = 0.3      # the demo's precomputed-mask threshold
 PAD_MULTIPLE = 27
@@ -103,16 +107,20 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     add_config_args(p)
-    p.set_defaults(resume="runs/ckpt_faithful")
     p.add_argument("--root", required=True)
     p.add_argument("--save2where", required=True)
     p.add_argument("--mask_thold", type=float, default=MASK_THOLD)
     p.add_argument("--mask_source", default="compute",
                    choices=("compute", "wavelet"))
+    p.add_argument("--exec_s2d", type=int, default=0,
+                   help="run a faithful checkpoint through the exact "
+                   "space-to-depth repack: same outputs, s2d execution")
     args = p.parse_args(argv)
 
     cfg = apply_checkpoint_sidecar(build_config(args), args)
     model, _ = init_model_and_state(cfg, args.resume, device=args.device)
+    if args.exec_s2d and not cfg.model.s2d_fine:
+        model = s2d_exec_model(model)
     dev = next(model.parameters()).device
     os.makedirs(args.save2where, exist_ok=True)
     scenes = sorted(d for d in os.listdir(args.root)

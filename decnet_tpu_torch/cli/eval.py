@@ -7,7 +7,8 @@ sample (disparity * 256, cropped to the image's own size).
 
 Each batch runs at max_disp = the largest ndisp of its samples, rounded up
 to a multiple of 27 (Middlebury's per-scene ranges; SceneFlow's 192 gives
-216).  A batch whose forward raises is written to
+216).  --exec_s2d 1 runs a faithful checkpoint through its exact s2d
+twin (`models/repack.py::s2d_exec`).  A batch whose forward raises is written to
 `<save2where>/Errors/batch<i>.npz` before the error propagates.  The
 checkpoint (`--resume`) is a params.npz directory, a port training
 directory or a reference .pkl (`cli/common.py`).
@@ -34,6 +35,7 @@ from decnet_tpu_torch.cli.common import (add_config_args,
 from decnet_tpu_torch.data import get_dataset
 from decnet_tpu_torch.data import io as dio
 from decnet_tpu_torch.data.loader import DataLoader, to_device
+from decnet_tpu_torch.models.repack import s2d_exec_model
 from decnet_tpu_torch.train.metrics import per_sample_epe_d1
 
 NDISP_ALIGN = 27
@@ -53,7 +55,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mask_source", type=str, default="compute",
                    choices=["compute", "precomputed", "wavelet"])
     p.add_argument("--exec_s2d", type=int, default=0,
-                   help="not ported: ROADMAP.md section 1, item 2")
+                   help="run a faithful checkpoint through the exact "
+                   "space-to-depth repack (models/repack.py): same "
+                   "outputs, s2d execution")
     return p.parse_args(argv)
 
 
@@ -78,13 +82,11 @@ def main(argv=None) -> Dict:
     samples), `max_disp` and `seconds`, and `mean_epe` / `mean_d1` over
     the samples (eval mode)."""
     args = parse_args(argv)
-    if args.exec_s2d:
-        raise NotImplementedError(
-            "--exec_s2d is not ported (ROADMAP.md section 1, item 2: the "
-            "weight repacking)")
     cfg = build_config(args)
     cfg = apply_checkpoint_sidecar(cfg, args)
     model, _ = init_model_and_state(cfg, args.resume, device=args.device)
+    if args.exec_s2d and not cfg.model.s2d_fine:
+        model = s2d_exec_model(model)
     dev = next(model.parameters()).device
 
     ds = get_dataset(args.dataset, args.root, split=args.test_split,

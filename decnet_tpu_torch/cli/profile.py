@@ -7,7 +7,9 @@ warm-up and then three seeded synthetic 540x972 requests through
 config.json (any committed one: the faithful, s2d, window and detail
 recipes; batch 8 of 162x486 crops of the on-device stream), takes one
 warm-up step and then three steps (its checkpoint directory, under the
-build directory, is never written, so nothing is resumed).
+build directory, is never written, so nothing is resumed); `--set`
+overrides go to the train CLI, e.g. `--set train.freeze_bn=1 --set
+train.packed_exec=1` for the packed frozen-BN step.
 The measured part runs under torch.profiler; printed are the wall time per
 request (step), the device time of the top kernels, the device's busy
 share of the window, and one JSON summary line.  The device-time sums come
@@ -15,7 +17,7 @@ from CUPTI, as `key_averages()` reports them.
 
 Usage:
   python -m decnet_tpu_torch.cli.profile [--mode serve|train]
-      [--resume runs/ckpt_faithful]
+      [--resume runs/ckpt_faithful] [--set SECTION.KEY=VALUE ...]
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _serve_work(resume, dev):
+def _serve_work(resume, dev, overrides=()):
     """(warm-up, measured work, label) of serving."""
     model = load_checkpoint(resume, device=dev)
     H, W, D = SIZE
@@ -73,12 +75,13 @@ def _serve_work(resume, dev):
     return warm, work, f"requests {H}x{W} max_disp {D}"
 
 
-def _train_work(resume, dev):
+def _train_work(resume, dev, overrides=()):
     """(warm-up, measured work, label) of training steps."""
     run = train_cli.prepare(["--config", os.path.join(resume, "config.json"),
                              "--dataset", "synthetic", "--init_from", resume,
                              "--ckpt_dir", str(BUILD_DIR / "profile_ckpt"),
-                             "--device", str(dev)])
+                             "--device", str(dev)]
+                            + [a for ov in overrides for a in ("--set", ov)])
     batches = [next(run.stream) for _ in range(REQUESTS + 1)]
     t = run.cfg.train
 
@@ -96,11 +99,16 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
     p.add_argument("--resume", default="runs/ckpt_faithful")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="SECTION.KEY=VALUE",
+                   help="train mode: a config override for the train CLI")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
+    if args.overrides and args.mode != "train":
+        raise ValueError("--set applies to --mode train")
     make = _serve_work if args.mode == "serve" else _train_work
-    warm, work, label = make(args.resume, dev)
+    warm, work, label = make(args.resume, dev, args.overrides)
     warm()
     torch.cuda.synchronize()
 

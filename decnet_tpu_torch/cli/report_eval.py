@@ -18,7 +18,8 @@ f32, as the JAX script does on TPU and CPU.
 Usage:
   python -m decnet_tpu_torch.cli.report_eval --ckpt runs/ckpt_faithful \\
       --h 540 --w 972 --max_disp 216 --batch 4 --batches 24 --seed 37 \\
-      --variant legacy [--json out.json] [--device cuda] [--draws s.npz]
+      --variant legacy [--json out.json] [--device cuda] [--draws s.npz] \
+      [--exec_s2d 1]
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from decnet_tpu_torch.config import VARIANTS
 from decnet_tpu_torch.data.device_synth import (device_batch_stream,
                                                 saved_draw_stream)
 from decnet_tpu_torch.device import resolve_device
+from decnet_tpu_torch.models.repack import s2d_exec_model
 from decnet_tpu_torch.ops.resize import interpolate
 from decnet_tpu_torch.train.metrics import epe_and_d1
 from decnet_tpu_torch.weights import load_checkpoint
@@ -60,6 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="evaluate on the saved scenes of this npz "
                    "(`data.device_synth.saved_draw_stream`), e.g. the JAX "
                    "report stream's, instead of the port's stream")
+    p.add_argument("--exec_s2d", type=int, default=0,
+                   help="run a faithful checkpoint through the exact "
+                   "space-to-depth repack (models/repack.py)")
     p.add_argument("--json", default=None, help="also write the report here")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -68,12 +73,17 @@ def parse_args(argv=None) -> argparse.Namespace:
 @torch.no_grad()
 def report(ckpt: str, *, h: int, w: int, max_disp: int, batch: int,
            batches: int, seed: int = 37, variant: str = "default",
-           device="cuda", draws: Optional[str] = None) -> Dict:
+           device="cuda", draws: Optional[str] = None,
+           exec_s2d: bool = False) -> Dict:
     """The report of `ckpt` on `batches` val batches (see the module
-    docstring), of the saved scenes `draws` if given."""
+    docstring), of the saved scenes `draws` if given; `exec_s2d` runs a
+    faithful checkpoint through its exact s2d twin."""
     dev = resolve_device(device)
     dtype = "bfloat16" if dev.type == "cuda" else "float32"
     model = load_checkpoint(ckpt, device=dev, max_disp=max_disp, dtype=dtype)
+    s2d = model.cfg.s2d_fine            # the checkpoint's own form
+    if exec_s2d and not s2d:
+        model = s2d_exec_model(model)
     cfg = model.cfg
     stream = (saved_draw_stream(draws, seed=seed, batch=batch, h=h, w=w,
                                 max_disp=max_disp, dtype=cfg.torch_dtype,
@@ -109,8 +119,8 @@ def report(ckpt: str, *, h: int, w: int, max_disp: int, batch: int,
     seconds = time.perf_counter() - t0
 
     meta = os.path.join(ckpt, "meta.json")
-    rep = {"step": None, "s2d": cfg.s2d_fine, "use_detail": cfg.use_detail,
-           "batches": batches}
+    rep = {"step": None, "s2d": s2d, "use_detail": cfg.use_detail,
+           "batches": batches, "exec_s2d": bool(exec_s2d and not s2d)}
     if os.path.exists(meta):
         with open(meta) as f:
             rep["step"] = json.load(f).get("step")
@@ -143,7 +153,7 @@ def main(argv=None):
     a = parse_args(argv)
     rep = report(a.ckpt, h=a.h, w=a.w, max_disp=a.max_disp, batch=a.batch,
                  batches=a.batches, seed=a.seed, variant=a.variant,
-                 device=a.device, draws=a.draws)
+                 device=a.device, draws=a.draws, exec_s2d=bool(a.exec_s2d))
     print(json.dumps(rep, indent=2))
     if a.json:
         with open(a.json, "w") as f:

@@ -2,8 +2,11 @@
 
 Any committed checkpoint's recipe trains: the faithful model, learned
 detail heads (`use_detail`, whose mask loss adds `loss.alpha` times its
-value), the s2d full-resolution stage (`s2d_fine`) and the windowed
-matching (`match_window`), under any of the five loss types.
+value), the s2d stages (`s2d_fine`, `s2d_stages` 1 or 2) and the
+windowed matching (`match_window`), under any of the five loss types.
+The config is the JAX CLI's: `--config` (JSON, or YAML when PyYAML
+imports), the reference's flags (`--max_disp`, `--use_detail`, `--seed`,
+...; `cli/common.py::add_config_args`), then the `--set` overrides.
 
 Data: with `data.on_device` (`--dataset synthetic`) batches are made on
 the device (`data/device_synth.py`).  Otherwise (`--set
@@ -20,7 +23,11 @@ dataset's eval batches go to the device once, at the start.
 Per step: the forward with batch-statistic batch norm (running
 statistics from `train.freeze_bn_after` on, or throughout with
 `train.freeze_bn`), the loss, backward, the global-norm clip and Adam at
-the scheduled rate.  Logs the JAX CLI's JSON lines every
+the scheduled rate.  With `train.packed_exec` a faithful model's
+frozen-BN steps run its packed s2d twin (s2d_stages 2) on its own
+parameters gathered (`models/repack.py::repack_linear`): the gradients
+land on the faithful parameters, which the optimizer and checkpoints
+keep.  Logs the JAX CLI's JSON lines every
 `train.log_every` steps, with `loader_wait_s`, the host's seconds spent
 waiting for batches in that interval (and eval lines with --eval_split).
 Every `train.ckpt_every` steps and at the end it saves a resumable
@@ -39,7 +46,11 @@ Usage:
 A --ckpt_dir that holds a checkpoint is resumed from its newest step:
 parameters, BN statistics, optimizer state and step; the on-device stream
 goes on at that step's batch (a dataset's loader starts a new epoch, as
-the JAX CLI's does).  --init_from then does nothing; on a fresh run it
+the JAX CLI's does).  One that holds only a params snapshot
+(`params.npz` + `meta.json`, as every `runs/ckpt_*`) restores its
+parameters and BN statistics at its step, with a fresh optimizer whose
+schedule starts again, as the JAX CLI does.  --init_from then does
+nothing; on a fresh run it
 warm-starts from a params.npz directory, as the JAX CLI's
 `restore_partial` does from an Orbax directory: every parameter and BN
 statistic whose key and shape match is copied, the rest keep their fresh
@@ -53,19 +64,22 @@ import itertools
 import json
 import os
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from decnet_tpu_torch.config import Config, load_full_config
+from decnet_tpu_torch.cli.common import add_config_args, load_snapshot
+from decnet_tpu_torch.cli.common import build_config as common_build_config
+from decnet_tpu_torch.config import Config
 from decnet_tpu_torch.data import get_dataset
 from decnet_tpu_torch.data.device_synth import device_batch_stream
 from decnet_tpu_torch.data.loader import (HOST_KEYS, DataLoader,
                                           device_batches, to_device)
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.models.decnet import DecNet
-from decnet_tpu_torch.train.checkpoint import CheckpointManager
+from decnet_tpu_torch.models.repack import repack_linear
+from decnet_tpu_torch.train.checkpoint import PARAMS_FILE, CheckpointManager
 from decnet_tpu_torch.train.step import (TrainState, check_loss_type,
                                          create_train_state, eval_step,
                                          train_step)
@@ -77,10 +91,9 @@ EVAL_KEYS = ("epe", "d1", "epe_up0", "d1_up0")
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--config", default=None, help="config.json to start from")
-    p.add_argument("--set", dest="overrides", action="append", default=[],
-                   metavar="SECTION.KEY=VALUE",
-                   help="config override, e.g. --set model.max_disp=54")
+    # --config (JSON or YAML), --set and the reference's flags, as the JAX
+    # CLI takes them; --resume is accepted and not read, as there
+    add_config_args(p)
     p.add_argument("--dataset", required=True,
                    help="synthetic (on the device with data.on_device, "
                    "else the host twin), sceneflow, kitti15, middlebury, "
@@ -103,18 +116,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "with data.on_device (the validation stream)")
     p.add_argument("--eval_every", type=int, default=2000)
     p.add_argument("--eval_batches", type=int, default=16)
-    p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
 def build_config(args: argparse.Namespace) -> Config:
-    cfg = (load_full_config(args.config, args.overrides) if args.config
-           else Config().apply_overrides(args.overrides))
+    """The config as the JAX CLI builds it (`cli/common.py::build_config`:
+    the config file, the reference's flags, the `--set` overrides), then
+    the dataset, --ckpt_dir and --steps."""
+    cfg = common_build_config(args)
     if cfg.data.on_device and args.dataset != "synthetic":
         raise ValueError(f"data.on_device makes synthetic batches; --dataset "
                          f"{args.dataset!r} is read from files with "
                          f"--set data.on_device=false")
     check_loss_type(cfg)
+    t = cfg.train
+    if t.packed_exec:
+        if cfg.model.s2d_fine:
+            raise ValueError("packed_exec is for faithful form "
+                             "(s2d_fine false)")
+        if not (t.freeze_bn or t.freeze_bn_after > 0):
+            raise ValueError("packed_exec needs a freeze_bn phase to apply "
+                             "to (train.freeze_bn or train.freeze_bn_after)")
     cfg.data.dataset, cfg.data.root = args.dataset, args.root
     if args.ckpt_dir:
         cfg.train.ckpt_dir = args.ckpt_dir
@@ -161,6 +183,9 @@ class Run:
     eval_batches: Optional[List[Dict]]
     eval_every: int
     ckpt: CheckpointManager
+    # the packed s2d twin of the faithful model and its gather
+    # (`models/repack.py::repack_linear`), with train.packed_exec
+    packed: Optional[Tuple] = None
 
     def freeze_bn(self) -> bool:
         """Whether the next step normalises with the running statistics."""
@@ -169,7 +194,11 @@ class Run:
                                and self.state.step >= t.freeze_bn_after)
 
     def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return train_step(self.state, batch, self.cfg, self.freeze_bn())
+        """One update; with packed_exec, a frozen-BN step runs through the
+        packed twin, as the JAX CLI's freeze step does."""
+        frozen = self.freeze_bn()
+        return train_step(self.state, batch, self.cfg, frozen,
+                          self.packed if frozen else None)
 
     def evaluate(self) -> Dict[str, float]:
         ms = [eval_step(self.state.model, b, self.cfg)
@@ -192,8 +221,17 @@ def prepare(argv=None) -> Run:
         ckpt.restore(state)
         print(f"Restored checkpoint step {state.step} from "
               f"{cfg.train.ckpt_dir}", flush=True)
+    elif os.path.isfile(os.path.join(cfg.train.ckpt_dir, PARAMS_FILE)):
+        # a params snapshot alone: its weights at its step, the optimizer
+        # (and so its schedule) fresh, as JAX's init_model_and_state
+        state.step = state.schedule_from = load_snapshot(
+            state.model, os.path.join(cfg.train.ckpt_dir, PARAMS_FILE))
     if args.init_from and state.step == 0:
-        warm_start(state.model, os.path.join(args.init_from, "params.npz"))
+        warm_start(state.model, os.path.join(args.init_from, PARAMS_FILE))
+    # the repack reads the model's structure only; every packed step
+    # gathers the faithful tensors anew
+    packed = (repack_linear(state.model, stages=2)
+              if cfg.train.packed_exec else None)
     if cfg.data.on_device:
         gen_kw = dict(batch=cfg.train.batch_size, h=cfg.train.crop_h,
                       w=cfg.train.crop_w, max_disp=cfg.model.max_disp,
@@ -236,7 +274,8 @@ def prepare(argv=None) -> Run:
                 for k in HOST_KEYS:
                     b.pop(k, None)
                 eval_batches.append(b)
-    return Run(cfg, state, stream, eval_batches, args.eval_every, ckpt)
+    return Run(cfg, state, stream, eval_batches, args.eval_every, ckpt,
+               packed)
 
 
 def run(r: Run) -> None:

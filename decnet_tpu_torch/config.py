@@ -39,13 +39,14 @@ def _refuse(section: str, obj, unsupported: dict, where: str = ""):
 @dataclasses.dataclass
 class ModelConfig:
     """Architecture of DecNet: the faithful (reference-form) model, with
-    learned detail heads (`use_detail`), the space-to-depth twin of the
-    full-resolution stage (`s2d_fine` with `s2d_stages` 1) and the
-    prior-windowed matching (`match_window`).
+    learned detail heads (`use_detail`), the space-to-depth twins of the
+    full-resolution stage (`s2d_fine`, `s2d_stages` 1) and of the 1/3-res
+    stage too (`s2d_stages` 2), and the prior-windowed matching
+    (`match_window`).
 
-    Values the port does not implement yet (s2d_stages >= 2, the bicubic
-    skip of fine stages, other costs or norms) are refused at construction
-    rather than ignored."""
+    Values the port does not implement yet (the bicubic skip of fine
+    stages, other costs or norms) are refused at construction rather than
+    ignored."""
     max_disp: int = 216
     base_channels: int = 8
     num_stage: int = 4
@@ -79,10 +80,10 @@ class ModelConfig:
         if self.thold_mode not in THOLD_MODES:
             raise ValueError(f"thold_mode must be one of {THOLD_MODES}, "
                              f"got {self.thold_mode!r}")
-        _refuse("ModelConfig", self, {
-            "s2d_stages": self.s2d_fine and self.s2d_stages != 1},
-            " (ROADMAP.md section 1, item 1: the s2d form of the 1/3-res "
-            "stage)")
+        if self.s2d_fine and self.s2d_stages not in (1, 2):
+            # the extractor packs only its full-res and 1/3-res levels
+            raise ValueError(f"s2d_stages must be 1 or 2 with s2d_fine, "
+                             f"got {self.s2d_stages}")
         _refuse("ModelConfig", self, {
             "skip_stage_id": self.skip_stage_id < self.num_stage,
             "cost_func": self.cost_func != "cor",
@@ -133,14 +134,14 @@ class TrainConfig:
     keep_ckpts: int = 5                 # resumable checkpoints kept, newest
     freeze_bn: bool = False             # every step normalises with running stats
     freeze_bn_after: int = 0            # from this step on, as freeze_bn; 0: never
+    # the frozen-BN steps of a faithful model run its packed s2d twin
+    # (models/repack.py::repack_linear); needs freeze_bn or freeze_bn_after
     packed_exec: bool = False
     max_rss_gb: float = 80.0            # a TPU-host guard; not read here
 
     def __post_init__(self):
         if self.lr_schedule not in ("cosine", "constant", "piecewise"):
             raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
-        _refuse("TrainConfig", self, {"packed_exec": self.packed_exec},
-                " (ROADMAP.md section 1, item 2: the weight repacking)")
 
 
 @dataclasses.dataclass
@@ -252,23 +253,34 @@ def _int_or_float(x: str):
         return float(x)
 
 
-def _read_json(path: str) -> dict:
+def _read_config(path: str) -> dict:
+    """A config file as a dict: JSON, or YAML (`.yaml`/`.yml`) through
+    PyYAML as the JAX package reads it; a directory means its
+    `config.json`."""
     if os.path.isdir(path):
         path = os.path.join(path, "config.json")
     with open(path) as f:
+        if path.endswith((".yaml", ".yml")):
+            try:
+                import yaml
+            except ImportError:
+                raise ImportError(f"{path}: a YAML config needs PyYAML, "
+                                  f"which does not import here; pass a "
+                                  f"JSON config") from None
+            return yaml.safe_load(f) or {}
         return json.load(f)
 
 
 def load_full_config(path: str, overrides: Iterable[str] = ()) -> Config:
-    """The whole Config from a `config.json` (or the directory holding
-    it), with 'section.key=value' overrides applied."""
-    return Config.from_dict(_read_json(path)).apply_overrides(overrides)
+    """The whole Config from a `config.json` or YAML file (or the
+    directory holding a `config.json`), with 'section.key=value' overrides applied."""
+    return Config.from_dict(_read_config(path)).apply_overrides(overrides)
 
 
 def load_config(path: str, **overrides) -> ModelConfig:
     """ModelConfig from a checkpoint's `config.json` sidecar (or the
     directory holding it).  Unknown model keys raise; `overrides` win."""
-    raw = _read_json(path)
+    raw = _read_config(path)
     model = dict(raw.get("model", raw))
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     unknown = set(model) - fields - _IGNORED_KEYS

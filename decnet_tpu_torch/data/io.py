@@ -267,23 +267,50 @@ def write_pfm(path: str, data: np.ndarray, scale: float = 1.0):
         np.flipud(data).astype("<f").tofile(f)
 
 
+_PFM_HEADER = re.compile(rb"P([Ff])\s*(\S+)\s+(\S+)\s+(\S+)")
+
+
+def pfm_header(data: bytes) -> Tuple[int, int, int]:
+    """(h, w, c) of PFM bytes, parsed as `native/decnet_native.cc::
+    decnet_decode_pfm` parses them ("PF"/"Pf", then width, height and
+    scale separated by whitespace)."""
+    m = _PFM_HEADER.match(data)
+    if not m:
+        raise ValueError("not a PFM header")
+    try:
+        w, h = int(float(m.group(2))), int(float(m.group(3)))
+    except ValueError:
+        raise ValueError("malformed PFM header") from None
+    if h <= 0 or w <= 0:
+        raise ValueError(f"PFM header claims {w}x{h}")
+    return h, w, 3 if m.group(1) == b"F" else 1
+
+
 def decode_pfm(data: bytes, max_pixels: int = 1 << 26) -> np.ndarray:
     """PFM bytes decoded by `native/decnet_native.cc`: (H,W) or (H,W,3)
-    float32."""
+    float32.  The header is read here first: the native decoder writes
+    h*w*c floats without a bound, so the buffer is sized from the header,
+    and a header claiming more than `max_pixels` values is refused."""
+    h, w, c = pfm_header(data)
+    n = h * w * c
+    if n > max_pixels:
+        raise ValueError(f"PFM of {w}x{h}x{c} = {n} values exceeds "
+                         f"max_pixels={max_pixels}")
     pf = ctypes.POINTER(ctypes.c_float)
     pi = ctypes.POINTER(ctypes.c_int)
     lib = build.load(build.HOST_LIB, {"decnet_decode_pfm": [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, pf, pi, pi, pi]},
         restype=ctypes.c_int)
     buf = np.frombuffer(data, np.uint8)
-    out = np.empty(max_pixels, np.float32)
-    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = np.empty(n, np.float32)
+    oh, ow, oc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     rc = lib.decnet_decode_pfm(
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(data),
-        out.ctypes.data_as(pf), ctypes.byref(h), ctypes.byref(w),
-        ctypes.byref(c))
+        out.ctypes.data_as(pf), ctypes.byref(oh), ctypes.byref(ow),
+        ctypes.byref(oc))
     if rc != 0:
         raise ValueError(f"PFM decode failed rc={rc}")
-    n = h.value * w.value * c.value
-    shape = (h.value, w.value, 3) if c.value == 3 else (h.value, w.value)
-    return out[:n].reshape(shape).copy()
+    if (oh.value, ow.value, oc.value) != (h, w, c):
+        raise ValueError(f"PFM header read as {(h, w, c)} here and "
+                         f"{(oh.value, ow.value, oc.value)} natively")
+    return out.reshape((h, w, 3) if c == 3 else (h, w))

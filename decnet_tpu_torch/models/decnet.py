@@ -1,8 +1,8 @@
 """DecNet forward for serving and training — the port of
 decnet_tpu/models/decnet.py:47-376 for the faithful model, its learned
-detail heads (`use_detail`), the space-to-depth twin of the full-resolution
-stage (`s2d_fine`, s2d_stages 1) and the prior-windowed matching
-(`match_window`).
+detail heads (`use_detail`), the space-to-depth twins of the
+full-resolution stage (`s2d_fine`, s2d_stages 1) and of the 1/3-res stage
+too (s2d_stages 2), and the prior-windowed matching (`match_window`).
 
 Per forward pass:
   stage 0 (1/27): uniform warped `cor` cost volume -> 3D-conv regulariser
@@ -15,10 +15,11 @@ Per forward pass:
                   dense prediction with match_window, and in training the
                   `spamat_dref` and `spamat_dtar` kernels); soft-attention
                   fusion; residual refinement (the `warp` kernel).
-With s2d_fine the last stage runs its convolutions on s2d planes at 1/3
-resolution (`...S2D` heads); the matching and the warp see its features
-unpacked to full resolution (`depth_to_space`), which is the data the JAX
-package's rows-form kernels read.  Under grad_method "detach" the coarser
+With s2d_fine the last stage (with s2d_stages 2 the last two) runs its
+convolutions on s2d planes at 1/3 of its resolution (`...S2D` heads); the
+matching and the warp see its features unpacked to the stage's own
+resolution (`depth_to_space`), which is the data the JAX package's
+rows-form kernels read, and so does the next stage's detail head.  Under grad_method "detach" the coarser
 prediction enters the dynamic upsampling without gradient, and the
 variance never carries one (the reference computes it under no_grad).
 Batch norm follows the module's train/eval mode.  Inputs are NCHW; the
@@ -121,16 +122,22 @@ class DecNet(nn.Module):
         dtype = cfg.torch_dtype
         s, ns = cfg.down_scale, cfg.num_stage
         self.feature_extractor = FeatureExtractor(
-            cfg.base_channels, s, s2d_last=cfg.s2d_fine, dtype=dtype)
+            cfg.base_channels, s, s2d_last=cfg.s2d_fine,
+            s2d_mid=cfg.s2d_fine and cfg.s2d_stages >= 2, dtype=dtype)
         chans = self.feature_extractor.out_channels
+        # each stage's channels unpacked: what the next detail head reads
+        plain = [cfg.base_channels * s ** (ns - 1 - st) for st in range(ns)]
         self.cost_reg = CostRegNet(chans[0], dtype=dtype)
         for stage in range(1, ns):
             c, i = chans[stage], stage - 1
             if self._s2d(stage):
-                hidden = s * s * cfg.base_channels * s ** (ns - 1 - stage)
+                # the packed twins keep the faithful stage's widths:
+                # Refinement's is the stage's channels, SoftAttention's is
+                # base_channels at every stage
+                hidden = s * s * plain[stage]
                 if cfg.use_detail:
                     self.add_module(f"detail_{i}", DetailHeadS2D(
-                        chans[stage - 1], c, s, dtype=dtype))
+                        plain[stage - 1], c, s, dtype=dtype))
                 self.add_module(f"dyn_up_{i}", DynamicUpsampling(
                     c, s, pre_unfolded=True, out_s2d=True, dtype=dtype))
                 self.add_module(f"soft_att_{i}", SoftAttentionS2D(
@@ -145,7 +152,7 @@ class DecNet(nn.Module):
             else:
                 if cfg.use_detail:
                     self.add_module(f"detail_{i}", DetailHead(
-                        chans[stage - 1], c, dtype=dtype))
+                        plain[stage - 1], c, dtype=dtype))
                 self.add_module(f"dyn_up_{i}",
                                 DynamicUpsampling(c, s, dtype=dtype))
                 self.add_module(f"soft_att_{i}",
@@ -159,9 +166,11 @@ class DecNet(nn.Module):
                     nn.Parameter(torch.tensor(math.log(cfg.match_temp))))
 
     def _s2d(self, stage: int) -> bool:
-        """Whether fine stage `stage` runs in s2d form (s2d_stages 1: the
-        full-resolution stage)."""
-        return self.cfg.s2d_fine and stage == self.cfg.num_stage - 1
+        """Whether fine stage `stage` runs in s2d form: the last
+        `s2d_stages` stages with s2d_fine, never stage 0."""
+        cfg = self.cfg
+        return (cfg.s2d_fine and stage > 0
+                and stage >= cfg.num_stage - cfg.s2d_stages)
 
     def _temperature(self, i: int) -> Optional[torch.Tensor]:
         cfg = self.cfg
@@ -208,7 +217,7 @@ class DecNet(nn.Module):
             i = stage - 1
             s2d = self._s2d(stage)
             lf, rf = left_all[stage], right_all[stage]
-            # the matching and the warp read full-resolution features
+            # the matching and the warp read the stage's unpacked features
             lf_full = depth_to_space(lf, scale) if s2d else lf
             rf_full = depth_to_space(rf, scale) if s2d else rf
             lf_full, rf_full = lf_full.contiguous(), rf_full.contiguous()

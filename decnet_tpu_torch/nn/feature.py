@@ -13,8 +13,10 @@ With `s2d_last` the image enters as `space_to_depth(x, 3)` (27 channels at
 stride 1), and the last decoder block is a 1x1 conv of the 1/3 level
 (`deconv1_s2d`, the stride-3 transposed conv in s2d space), a concat with
 the skip and two convs (`deconv1_c0`, `deconv1_c1`): stage3 is then
-(B, 9C, H/3, W/3), channel (i*3 + j)*C + c holding phase (i, j).  The
-1/3-res level in s2d form (`s2d_mid`, s2d_stages >= 2) is not ported."""
+(B, 9C, H/3, W/3), channel (i*3 + j)*C + c holding phase (i, j).  With
+`s2d_mid` (s2d_stages 2) the 1/3-res level is also emitted in s2d form,
+`space_to_depth(stage2, 3)`: (B, 27C, H/9, W/9), a pure reshape with no
+parameters of its own; the decoder still reads it unpacked."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -61,13 +63,15 @@ class DeconvBlock(nn.Module):
 
 class FeatureExtractor(nn.Module):
     def __init__(self, base_channels: int = 8, down_scale: int = 3,
-                 s2d_last: bool = False, dtype=torch.float32):
+                 s2d_last: bool = False, s2d_mid: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         C, s = base_channels, down_scale
         c1, c2, c3 = C * s, C * s * s, C * s ** 3
-        self.scale, self.s2d_last = s, s2d_last
+        self.scale, self.s2d_last, self.s2d_mid = s, s2d_last, s2d_mid
         C0 = C * s * s if s2d_last else C
-        self.out_channels = [c3, c2, c1, C0]    # coarse -> fine
+        # coarse -> fine, as emitted
+        self.out_channels = [c3, c2, c1 * s * s if s2d_mid else c1, C0]
 
         def unit(name, cin, cout, k=3, stride=1, padding=1):
             self.add_module(name, ConvUnit(cin, cout, k, stride=stride,
@@ -117,4 +121,6 @@ class FeatureExtractor(nn.Module):
             stage3 = self.deconv1_c1(self.deconv1_c0(y))
         else:
             stage3 = self.deconv1(skip0, stage2)
+        if self.s2d_mid:
+            stage2 = space_to_depth(stage2, self.scale)
         return [stage0, stage1, stage2, stage3]

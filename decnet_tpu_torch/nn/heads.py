@@ -152,7 +152,11 @@ class RefinementS2D(nn.Module):
     warped by the full-resolution disparity and s2d-packed, concatenated
     with the s2d left features and disparity plane, and a 7-conv head with
     per-conv `kernels` and `dilations` (padding d*(k-1)//2) runs at 1/r.
-    Returns (disp_s2d + residual, residual), both s2d planes."""
+    The default is the packed twin of stage 3's dilations 3/6/9
+    (`models/repack.py::packed_geometry`); stage 2's 2/4/6 give kernels
+    (3,3,5,3,3,3,3) and dilations (1,1,1,1,2,1,1), d=4 a 5-tap
+    phase-mixing conv.  Returns (disp_s2d + residual, residual), both s2d
+    planes."""
 
     def __init__(self, in_ch: int, scale: int = 3, hidden: int = 72,
                  kernels: Sequence[int] = (3,) * 7,

@@ -7,8 +7,8 @@ with the run's `config.json` beside it, so that the JAX package's
 
 `CheckpointManager` is the twin of the JAX package's Orbax manager: a
 resumable train state per saved step, `<dir>/<step>/params.npz` (as above)
-and `<dir>/<step>/train_state.pt` (the optimizer's state_dict and the
-step), the newest `keep` of them kept.  Every save also refreshes
+and `<dir>/<step>/train_state.pt` (the optimizer's state_dict, the step and
+the step its schedule started at), the newest `keep` of them kept.  Every save also refreshes
 `<dir>/params.npz` and `<dir>/config.json`, the run's newest weights for
 serving.  An Orbax directory is not read.
 
@@ -82,6 +82,7 @@ class CheckpointManager:
         np.savez(os.path.join(tmp, PARAMS_FILE),
                  **flax_arrays_from_model(state.model))
         torch.save({"step": state.step,
+                    "schedule_from": state.schedule_from,
                     "optimizer": state.optimizer.state_dict()},
                    os.path.join(tmp, STATE_FILE))
         shutil.rmtree(final, ignore_errors=True)
@@ -105,6 +106,7 @@ class CheckpointManager:
                            weights_only=True)
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
+        state.schedule_from = int(saved.get("schedule_from", 0))
         return state
 
 

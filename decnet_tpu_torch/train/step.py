@@ -9,7 +9,7 @@ heads' own binarised maps then feed the matching)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,11 +24,15 @@ from decnet_tpu_torch.train.metrics import epe_and_d1
 @dataclasses.dataclass
 class TrainState:
     """The model (f32 parameters, compute in cfg.model.dtype), its
-    optimizer, the schedule and the number of updates taken."""
+    optimizer, the schedule and the number of updates taken.  The schedule
+    counts the optimizer's own updates, `step - schedule_from`: a params
+    snapshot restores the step with a fresh optimizer, whose schedule
+    starts again, as optax's count does."""
     model: DecNet
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    schedule_from: int = 0
 
 
 def create_train_state(model: DecNet, cfg: Config) -> TrainState:
@@ -95,17 +99,28 @@ def compute_loss(out: Dict, batch: Dict, cfg: Config
 
 
 def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
-                   freeze_bn: bool = False
+                   freeze_bn: bool = False, packed: Optional[Tuple] = None
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
     """Forward (batch-stat BN, which updates the running stats, or with
     freeze_bn the running stats as eval uses them), the loss, backward.
-    Returns the logs (the loss terms and "total") and every parameter's
-    gradient, zeros for a parameter the loss does not reach."""
+    `packed` = (s2d twin, apply_fn) of `models/repack.py::repack_linear`
+    runs the forward on the packed twin with the faithful model's tensors
+    gathered into it (freeze_bn only: a packed BN would collect per-phase
+    statistics).  Returns the logs (the loss terms and "total") and every
+    parameter's gradient, zeros for a parameter the loss does not reach."""
     model.train(not freeze_bn)
     for p in model.parameters():
         p.grad = None
-    out = model(batch["left"], batch["right"], batch.get("left_masks"),
-                batch.get("right_masks"))
+    args = (batch["left"], batch["right"], batch.get("left_masks"),
+            batch.get("right_masks"))
+    if packed is not None:
+        if not freeze_bn:
+            raise ValueError("training-mode repack requires freeze_bn "
+                             "(packed BN batch statistics are per-phase)")
+        twin, apply_fn = packed
+        out = torch.func.functional_call(twin.eval(), apply_fn(model), args)
+    else:
+        out = model(*args)
     total, logs = compute_loss(out, batch, cfg)
     if total.requires_grad:
         total.backward()
@@ -120,14 +135,17 @@ def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
 
 
 def train_step(state: TrainState, batch: Dict, cfg: Config,
-               freeze_bn: bool = False) -> Dict[str, torch.Tensor]:
-    """One update: loss and gradients, `grad_norm` (of the unclipped
+               freeze_bn: bool = False, packed: Optional[Tuple] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One update: loss and gradients (through the packed twin with
+    `packed`, see `loss_and_grads`), `grad_norm` (of the unclipped
     gradients), the global-norm clip, then Adam at the scheduled rate.
     Returns the logs as device scalars (no host sync)."""
-    logs, grads = loss_and_grads(state.model, batch, cfg, freeze_bn)
+    logs, grads = loss_and_grads(state.model, batch, cfg, freeze_bn, packed)
     norm = state_lib.global_norm(grads)
     state_lib.clip_by_global_norm(grads, norm)
-    state_lib.apply_updates(state.optimizer, state.schedule, state.step)
+    state_lib.apply_updates(state.optimizer, state.schedule,
+                            state.step - state.schedule_from)
     state.step += 1
     logs["grad_norm"] = norm.detach()
     return logs

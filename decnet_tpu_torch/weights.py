@@ -21,7 +21,8 @@ Layouts:
   BatchNorm     scale/bias -> weight/bias, batch_stats mean/var ->
                 running_mean/running_var
 `flax_arrays_from_model` is the reverse: the model's state as the flat
-flax-named numpy arrays `params.npz` holds.
+flax-named numpy arrays `params.npz` holds (`variables_from_model` as the
+nested tree, which `models/repack.py` transforms).
 """
 from __future__ import annotations
 
@@ -103,17 +104,25 @@ def _flat_arrays(variables: Union[str, Mapping]
     return flatten_variables(variables)
 
 
-def state_dict_from_flax(variables: Union[str, Mapping]
-                         ) -> Dict[str, torch.Tensor]:
-    """The port's state_dict (f32 CPU tensors) from a `params.npz` path or
-    from nested flax variables."""
+def state_from_flax(variables: Union[str, Mapping]
+                    ) -> Dict[str, np.ndarray]:
+    """{port state_dict key: array in the port's layout} from a
+    `params.npz` path or nested flax variables, dtypes kept."""
     sd = {}
     for path, arr in _flat_arrays(variables).items():
         key, arr = _convert(path, arr)
         if key in sd:
             raise KeyError(f"two flax variables map onto {key}")
-        sd[key] = torch.from_numpy(np.array(arr, np.float32))
+        sd[key] = arr
     return sd
+
+
+def state_dict_from_flax(variables: Union[str, Mapping]
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict (f32 CPU tensors) from a `params.npz` path or
+    from nested flax variables."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in state_from_flax(variables).items()}
 
 
 def _flax_key(path: Tuple[str, ...]) -> str:
@@ -124,11 +133,20 @@ def flax_arrays_from_model(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """The model's parameters and batch-norm statistics as f32 numpy arrays
     under flattened flax keys ("['params']/['refine_2']/['c0']/['Conv_0']/
     ['kernel']"), in the JAX layouts: the inverse of `_convert`."""
+    return flax_arrays_from_state(model, {
+        k: t.detach().float().cpu().numpy()
+        for k, t in model.state_dict().items()})
+
+
+def flax_arrays_from_state(model: torch.nn.Module,
+                           state: Mapping[str, np.ndarray]
+                           ) -> Dict[str, np.ndarray]:
+    """`state` ({port state_dict key: array} of `model`'s keys and
+    shapes, any dtype) under flattened flax keys in the JAX layouts."""
     transposed = {name for name, m in model.named_modules()
                   if isinstance(m, torch.nn.ConvTranspose2d)}
     arrays = {}
-    for key, t in model.state_dict().items():
-        arr = t.detach().float().cpu().numpy()
+    for key, arr in state.items():
         names = key.split(".")
         if len(names) == 1 and names[0].startswith("match_logt_"):
             arrays[_flax_key(("params", names[0]))] = arr
@@ -153,6 +171,25 @@ def flax_arrays_from_model(model: torch.nn.Module) -> Dict[str, np.ndarray]:
         path = (collection,) + tuple(names[:-2]) + (flax_module, flax_leaf)
         arrays[_flax_key(path)] = np.ascontiguousarray(arr)
     return arrays
+
+
+def nest_variables(arrays: Mapping[str, np.ndarray]) -> Dict:
+    """Flattened flax keys -> the nested {collection: {module: ...}} tree
+    (the JAX package's variables, as numpy arrays)."""
+    tree: Dict = {}
+    for key, arr in arrays.items():
+        path = _parse_key(key)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def variables_from_model(model: torch.nn.Module) -> Dict:
+    """The model's state as the JAX package's nested variables tree (f32
+    numpy arrays, flax names and layouts)."""
+    return nest_variables(flax_arrays_from_model(model))
 
 
 def load_flax_variables(model: torch.nn.Module,

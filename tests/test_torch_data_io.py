@@ -179,6 +179,26 @@ def test_pfm_round_trip_against_jax(color, tmp_path):
         assert np.array_equal(tio.decode_pfm(raw), jnative.decode_pfm(raw))
 
 
+def test_decode_pfm_refuses_a_header_beyond_its_bound():
+    """decode_pfm reads the header before the native decoder writes: the
+    buffer is the header's size, and a header claiming more than
+    max_pixels values is refused (the native decoder writes h*w*c floats
+    with no bound)."""
+    rng = np.random.RandomState(5)
+    data = rng.randn(8, 8).astype(np.float32)
+    raw = b"Pf\n8 8\n-1.0\n" + np.flipud(data).astype("<f").tobytes()
+    with pytest.raises(ValueError, match="max_pixels"):
+        tio.decode_pfm(raw, max_pixels=63)
+    with pytest.raises(ValueError, match="max_pixels"):
+        tio.decode_pfm(b"PF\n8192 8192\n-1.0\n" + bytes(64))
+    assert np.array_equal(tio.decode_pfm(raw, max_pixels=64), data)
+    assert tio.pfm_header(raw) == (8, 8, 1)
+    for bad in (b"P6\n8 8\n-1.0\n", b"Pf\n-8 8\n-1.0\n",
+                b"Pf\nx 8\n-1.0\n"):
+        with pytest.raises(ValueError):
+            tio.decode_pfm(bad + bytes(256))
+
+
 def test_numpy_twins_equal_jax():
     rng = np.random.RandomState(4)
     img = rng.rand(50, 70, 3).astype(np.float32)

@@ -4,8 +4,9 @@ f32: per batch and mean EPE and loss_3 within 1e-3 (the two forwards
 differ by ~1e-5 px: their convolutions sum in other orders, which no
 pixel's 3 px test resolves on these fixtures; one pixel crossing it would
 move loss_3 by 100 / pixels, ~0.01).  Also the submission mode, the
-failure dump, the refusal of --exec_s2d, and the train CLI's host path
-for one step."""
+failure dump, --exec_s2d (a faithful checkpoint through its exact s2d
+twin: the same EPE), the train CLI's host path for one step, its parser
+against JAX's, and the demo's default checkpoint (none, as JAX's)."""
 import json
 import math
 import os
@@ -126,11 +127,105 @@ def test_eval_cli_submission_and_failure_dump(ckpt, tmp_path, monkeypatch):
             (2, 9, 12), (2, 27, 36), (2, 81, 108)]
 
 
-def test_eval_cli_refuses_exec_s2d(ckpt, tmp_path):
-    with pytest.raises(NotImplementedError, match="section 1, item 2"):
-        teval.main(eval_argv(str(tmp_path), ckpt, "sceneflow", "test",
-                             str(tmp_path), 1) + ["--exec_s2d", "1",
-                                                  "--device", "cpu"])
+def test_eval_cli_refuses_exec_s2d(ckpt, tmp_path, capsys):
+    """(Named for the refusal it checked while --exec_s2d was not ported;
+    the name is kept so its record reads on across runs.)  --exec_s2d is
+    no longer refused: the faithful checkpoint runs
+    through its s2d twin (`models/repack.py::s2d_exec_model`) with the
+    EPE and loss_3 of the faithful run within 1e-4 (the packed convs sum
+    in another order)."""
+    root = str(tmp_path / "data")
+    write_packs(root, "test", n=2, masks=False)
+    argv = eval_argv(root, ckpt, "sceneflow", "test", str(tmp_path / "o"),
+                     2) + ["--device", "cpu"]
+    plain = teval.main(argv)
+    packed = teval.main(argv + ["--exec_s2d", "1"])
+    assert len(packed["epe"]) == len(plain["epe"]) == 1
+    np.testing.assert_allclose(packed["epe"], plain["epe"], rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(packed["d1"], plain["d1"], rtol=0, atol=1e-4)
+
+
+def train_cli_argvs(tmp_path):
+    """Argument lists both train CLIs take: the reference's flags, a JSON
+    config with flags and overrides over it, and a YAML config."""
+    yml = tmp_path / "cfg.yaml"
+    yml.write_text("model:\n  max_disp: 54\n  use_detail: true\n"
+                   "  thold_mode: quantile\nloss:\n  weights: [1, 1, 1, "
+                   "0.5]\ntrain:\n  lr: 0.0005\n  batch_size: 2\n")
+    faithful = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                            "runs", "ckpt_faithful", "config.json")
+    head = ["--dataset", "synthetic", "--root", "unused"]
+    return [head + ["--max_disp", "54", "--use_detail", "1", "--seed", "3"],
+            head + ["--config", faithful, "--base_channels", "4", "--thold",
+                    "0.5", "--down_func_name", "bilinear", "--num_stage",
+                    "4", "--set", "train.batch_size=2", "--set",
+                    "model.match_window=12"],
+            head + ["--config", str(yml), "--down_scale", "3", "--set",
+                    "model.detail_density=0.3"]]
+
+
+def test_train_cli_takes_the_reference_flags_as_jax(tmp_path):
+    """The port's train CLI builds, from each argument list, the Config
+    JAX's train CLI builds (`add_config_args` + `build_config`), key for
+    key of the port's schema (the dataset and root, which the port's
+    config also records, aside)."""
+    import argparse
+    from decnet_tpu.cli import common as jcommon
+    for argv in train_cli_argvs(tmp_path):
+        p = argparse.ArgumentParser()
+        jcommon.add_config_args(p)
+        jargs, _ = p.parse_known_args(argv)
+        want = jcommon.build_config(jargs).to_dict()
+        got = tcli.build_config(tcli.parse_args(argv)).to_dict()
+        got["data"].pop("dataset"), got["data"].pop("root")
+        for section, d in got.items():
+            for k, v in d.items():
+                w = want[section][k]
+                assert (list(v) if isinstance(v, tuple) else v) == (
+                    list(w) if isinstance(w, tuple) else w), (argv,
+                                                              section, k)
+    cfg = tcli.build_config(tcli.parse_args(train_cli_argvs(tmp_path)[2]))
+    assert cfg.model.use_detail and cfg.model.thold_mode == "quantile"
+    assert cfg.loss.weights == (1, 1, 1, 0.5) and cfg.train.lr == 0.0005
+
+
+def test_yaml_config_needs_pyyaml(tmp_path, monkeypatch):
+    import builtins
+    from decnet_tpu_torch.config import load_full_config
+    yml = tmp_path / "c.yml"
+    yml.write_text("train:\n  seed: 5\n")
+    assert load_full_config(str(yml)).train.seed == 5
+    real = builtins.__import__
+
+    def no_yaml(name, *a, **k):
+        if name == "yaml":
+            raise ImportError("no yaml")
+        return real(name, *a, **k)
+    monkeypatch.setattr(builtins, "__import__", no_yaml)
+    with pytest.raises(ImportError, match="PyYAML"):
+        load_full_config(str(yml))
+
+
+def test_demo_default_checkpoint_is_none_as_jax(tmp_path, monkeypatch):
+    """Without --resume the demo serves a fresh initialisation, as JAX's
+    (decnet_tpu/cli/common.py:28 defaults --resume to none)."""
+    import argparse
+    from decnet_tpu.cli import common as jcommon
+    from decnet_tpu_torch.cli import demo
+    p = argparse.ArgumentParser()
+    jcommon.add_config_args(p)
+    assert p.parse_args([]).resume is None
+    seen = []
+
+    def stop(cfg, resume=None, device="cuda"):
+        seen.append(resume)
+        raise KeyboardInterrupt
+    monkeypatch.setattr(demo, "init_model_and_state", stop)
+    with pytest.raises(KeyboardInterrupt):
+        demo.main(["--root", str(tmp_path), "--save2where",
+                   str(tmp_path / "o"), "--device", "cpu"])
+    assert seen == [None]
 
 
 def test_train_cli_host_path_one_step(tmp_path, capsys):

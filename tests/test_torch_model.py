@@ -156,11 +156,14 @@ def test_faithful_checkpoint_through_bridge():
 
 
 def test_config_refuses_unported_paths():
-    # learned detail, s2d with one packed stage and windowed matching are
-    # ported (tests/test_torch_s2d_model.py); the rest is still refused
+    # learned detail, s2d with one or two packed stages and windowed
+    # matching are ported (tests/test_torch_s2d_model.py,
+    # tests/test_torch_s2d_mid.py); the extractor packs no third level, and
+    # the rest is still refused
     ModelConfig(use_detail=True, s2d_fine=True, match_window=12)
-    with pytest.raises(NotImplementedError):
-        ModelConfig(s2d_fine=True, s2d_stages=2)
+    ModelConfig(s2d_fine=True, s2d_stages=2)
+    with pytest.raises(ValueError):
+        ModelConfig(s2d_fine=True, s2d_stages=3)
     with pytest.raises(NotImplementedError):
         ModelConfig(skip_stage_id=3)
     with pytest.raises(ValueError):

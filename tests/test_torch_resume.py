@@ -9,6 +9,7 @@ statistics, optimizer state and step equal the unbroken run's bit for
 bit.  The port's `params.npz` is read back by the JAX package's strict
 `load_params` onto the JAX model's template with no array left over."""
 import itertools
+import json
 import os
 
 import numpy as np
@@ -154,3 +155,71 @@ def test_port_checkpoint_loads_in_jax_with_no_leftover(straight):
             k = "/".join(str(p) for p in key)
             np.testing.assert_array_equal(np.asarray(leaf), arrays[k])
     assert any("detail_2" in k for k in arrays)
+
+
+def test_params_snapshot_restored_as_jax_does(tmp_path, monkeypatch, capsys):
+    """A --ckpt_dir holding only a params snapshot (`params.npz` +
+    `meta.json`, as every runs/ckpt_*) is restored as JAX's
+    `init_model_and_state` restores it (decnet_tpu/cli/common.py:115-131):
+    its parameters and BN statistics, at its step, with a fresh optimizer
+    whose schedule starts again (optax's count is 0); the stream starts at
+    that step and the snapshot's file is left as it was.
+
+    JAX's function jits the model's init only to build a template that
+    the snapshot then overwrites; here that init is given as shapes and
+    zeros (`jax.eval_shape`), which saves ~25 s of compilation and changes
+    no restored value."""
+    from decnet_tpu.cli import common as jcommon
+    from decnet_tpu.config import Config as JaxFullConfig
+    from decnet_tpu_torch.train.checkpoint import save_params
+    snap = tmp_path / "snap"
+    src = tcli.prepare(argv(tmp_path / "src"))
+    gen = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for k, t in src.state.model.state_dict().items():
+            noise = 0.01 * torch.randn(t.shape, generator=gen)
+            t.add_(noise.abs() if k.endswith("running_var") else noise)
+    save_params(str(snap), src.state.model, src.cfg)
+    with open(snap / "meta.json", "w") as f:
+        json.dump({"step": 2}, f)
+    npz = snap / PARAMS_FILE
+    before = npz.read_bytes()
+    capsys.readouterr()
+
+    run = tcli.prepare(argv(snap))
+    assert f"Restored params snapshot (step 2) from {npz}" in \
+        capsys.readouterr().out
+    assert run.state.step == 2 and run.state.schedule_from == 2
+    assert npz.read_bytes() == before
+    assert not run.state.optimizer.state_dict()["state"]
+    got = flax_arrays_from_model(run.state.model)
+    with np.load(npz) as z:
+        assert sorted(z.files) == sorted(got)
+        for k in z.files:
+            np.testing.assert_array_equal(got[k], z[k], err_msg=k)
+    want = next(tsynth.device_batch_stream(
+        run.cfg.train.seed, batch=1, h=54, w=81, max_disp=54, device="cpu",
+        levels=3, thold=run.cfg.data.mask_thold, start_step=2))
+    assert torch.equal(next(run.stream)["gt"], want["gt"])
+
+    real_eval_shape = jax.eval_shape
+
+    def shape_only(fn):
+        return lambda *a, **k: jax.tree_util.tree_map(
+            lambda s: np.zeros(s.shape, s.dtype), real_eval_shape(fn, *a,
+                                                                  **k))
+    monkeypatch.setattr(jax, "jit", shape_only)
+    jcfg = JaxFullConfig.load(str(snap / "config.json"))
+    _, state, _ = jcommon.init_model_and_state(jcfg, str(snap))
+    monkeypatch.undo()
+    assert int(state.step) == run.state.step
+    counts = [int(c) for c in jax.tree_util.tree_leaves(state.opt_state)
+              if np.ndim(c) == 0 and np.issubdtype(np.asarray(c).dtype,
+                                                   np.integer)]
+    assert counts and not any(counts)
+    leaves = jax.tree_util.tree_flatten_with_path(
+        {"params": state.params, "batch_stats": state.batch_stats})[0]
+    assert len(leaves) == len(got)
+    for key, leaf in leaves:
+        k = "/".join(str(p) for p in key)
+        np.testing.assert_array_equal(np.asarray(leaf), got[k], err_msg=k)

@@ -29,6 +29,7 @@ from decnet_tpu_torch.config import load_config
 from decnet_tpu_torch.data import io as tio
 from decnet_tpu_torch.data.device_synth import device_batch_stream
 from decnet_tpu_torch.models import DecNet
+from decnet_tpu_torch.nn.heads import RefinementS2D
 from decnet_tpu_torch.ops.detail import detail_masks
 from decnet_tpu_torch.weights import (flax_arrays_from_model,
                                       load_flax_variables)
@@ -227,8 +228,9 @@ def test_demo_serves_learned_detail_checkpoint(tmp_path, monkeypatch):
                                   "ckpt_stressor_r5"])
 def test_train_cli_refuses_untrainable_configs(name, tmp_path, capsys):
     """The s2d, window and detail recipes build a training run, warm
-    started from their own checkpoint with every tensor restored; what
-    stays refused is s2d_stages >= 2, naming its ROADMAP item."""
+    started from their own checkpoint with every tensor restored; with
+    s2d_stages 2 the 1/3-res stage trains packed too, and a third packed
+    stage, which the extractor does not make, is refused."""
     argv = ["--config", os.path.join(ckpt(name), "config.json"),
             "--dataset", "synthetic", "--device", "cpu", "--ckpt_dir",
             str(tmp_path)]
@@ -240,6 +242,7 @@ def test_train_cli_refuses_untrainable_configs(name, tmp_path, capsys):
         "ckpt_stressor_r5": (False, False)}[name]
     assert re.search(r"warm-start params: \d+ restored, 0 fresh",
                      capsys.readouterr().out)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, "
-                       "item 1"):
-        tcli.prepare(argv + ["--set", "model.s2d_stages=2"])
+    run2 = tcli.prepare(argv + ["--set", "model.s2d_stages=2"])
+    assert isinstance(run2.state.model.refine_1, RefinementS2D)
+    with pytest.raises(ValueError, match="s2d_stages"):
+        tcli.prepare(argv + ["--set", "model.s2d_stages=3"])

@@ -309,9 +309,11 @@ def test_full_config_loader_and_overrides():
     assert cfg.model.grad_method == "detach" and cfg.data.on_device
     # what the JAX package reads back from the port's dict
     JaxConfig.from_dict(cfg.to_dict())
-    for bad in ("train.packed_exec=1", "mesh.tile=2"):
-        with pytest.raises(NotImplementedError):
-            tconfig.load_full_config(CKPT, [bad])
+    with pytest.raises(NotImplementedError):
+        tconfig.load_full_config(CKPT, ["mesh.tile=2"])
+    # packed_exec is ported (tests/test_torch_repack.py)
+    assert tconfig.load_full_config(
+        CKPT, ["train.packed_exec=1"]).train.packed_exec
     # every loss type is ported (tests/test_torch_losses.py)
     assert tconfig.load_full_config(
         CKPT, ["loss.loss_type=chamfer"]).loss.loss_type == "chamfer"
