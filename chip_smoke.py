@@ -51,6 +51,15 @@ checks with planted faults, the host's wait for batches), from KITTI and
 from the host synthetic dataset, ckpt_faithful in the reference's `.pkl`
 form served bit-equal through `--resume`, and `cli.demo` on PNG scenes
 with both mask sources; the directory is removed at the end.
+Last it decodes the committed DrivingStereo fixture's JPEG files
+(tests/fixtures/drivingstereo) on the host, each against the SHA-256 of
+cv2's decode in its manifest, and evaluates ckpt_faithful on them by
+`cli.eval` against the JAX CLI's EPE recorded there; serves and trains
+the model configurations beyond the faithful one (the cat and ssd costs,
+group norm, 3, 2 and 1 stages; fresh weights, kernel path against plain
+path); runs the Middlebury-F forward with the bicubic skip of stage 3
+beside the unskipped one; and holds the standalone SpaMat and SpaVar ops
+against their plain versions, rejecting zeroed backward kernels.
 One line is printed per phase as it ends; the line before the last is a
 JSON object describing every kernel, the last line is the device record.
 Any failed check ends the run with a non-zero exit.
@@ -560,15 +569,18 @@ def matching_backward_pairs(torch, spamat):
         tdecnet.sparse_matching_with_var = real
 
 
-def step_checks(torch, spamat, model, b, cfg, where):
+def step_checks(torch, spamat, model, b, cfg, where, faults=None):
     """A kernel-path step held against a plain-path step on one batch and
     one set of weights (loss, the whole gradient's cosine), and in the
     kernel-path step the gradient at the matching's inputs against the
-    plain backward's on the same inputs (`matching_backward_pairs`); then
-    the same against kernel paths with each planted fault, which must be
-    rejected where FAULTS says so.  The model's state is put back after
-    each step."""
+    plain backward's on the same inputs (`matching_backward_pairs`; a
+    model with no fine stage has none); then the same against kernel
+    paths with each planted fault of `faults` (FAULTS by default), which
+    must be rejected where it says so.  The model's state is put back
+    after each step."""
     from decnet_tpu_torch.train.step import loss_and_grads
+    faults = FAULTS if faults is None else faults
+    n_fine = len(range(1, min(cfg.model.num_stage, cfg.model.skip_stage_id)))
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     def run_step(use_kernels):
@@ -579,11 +591,11 @@ def step_checks(torch, spamat, model, b, cfg, where):
         finally:
             model.load_state_dict(state)
             model.use_kernels = True
-        if len(pairs) != 3:
+        if len(pairs) != n_fine:
             fail(f"{where}: the matching's backward ran {len(pairs)} times, "
-                 f"not 3")
+                 f"not {n_fine}")
         return (float(lg["total"]), flat_grads(torch, grads),
-                [torch.cat(x) for x in zip(*pairs)])
+                [torch.cat(x) for x in zip(*pairs)] if pairs else None)
 
     # in f64: an f32 cosine of ~1e7 terms is off by up to ~1e-3
     cos = lambda x, y: float(torch.nn.functional.cosine_similarity(
@@ -593,9 +605,11 @@ def step_checks(torch, spamat, model, b, cfg, where):
     def against_plain(lk, gk, matching):
         """(loss relative error, gradient cosine, matching-input gradient
         cosine), and whether all are accepted."""
-        rel, c, mc = abs(lk - lp) / abs(lp), cos(gk, gp), cos(*matching)
+        rel, c = abs(lk - lp) / abs(lp), cos(gk, gp)
+        mc = cos(*matching) if matching else float("nan")
         ok = (torch.isfinite(gk).all() and rel <= TRAIN_LOSS_RTOL
-              and c >= TRAIN_GRAD_COS and mc >= TRAIN_GRAD_COS)
+              and c >= TRAIN_GRAD_COS
+              and (not matching or mc >= TRAIN_GRAD_COS))
         return rel, c, mc, bool(ok)
 
     lk, gk, mk = run_step(True)
@@ -608,16 +622,17 @@ def step_checks(torch, spamat, model, b, cfg, where):
              f"{TRAIN_LOSS_RTOL}), gradient cosine {grad_cos:.6f}, "
              f"matching-input cosine {match_cos:.6f} (tol {TRAIN_GRAD_COS}),"
              f" finite {bool(torch.isfinite(gk).all())}")
-    faults = {}
-    for fault, (name, must_reject, planted) in FAULTS.items():
+    planted_faults = {}
+    for fault, (name, must_reject, planted) in faults.items():
         real = getattr(spamat, name)
         setattr(spamat, name, functools.wraps(real)(planted(torch, real)))
         try:
             rel, c, mc, passed = against_plain(*run_step(True))
         finally:
             setattr(spamat, name, real)
-        faults[fault] = {"loss_rel": rel, "grad_cos": c,
-                         "matching_grad_cos": mc, "rejected": not passed}
+        planted_faults[fault] = {"loss_rel": rel, "grad_cos": c,
+                                 "matching_grad_cos": mc,
+                                 "rejected": not passed}
         print(f"  {where} planted fault {fault}: loss rel {rel:.4g} "
               f"gradient cosine {c:.7g} matching-input cosine {mc:.7g}"
               f" -> {'rejected' if not passed else 'passed'}", flush=True)
@@ -625,8 +640,9 @@ def step_checks(torch, spamat, model, b, cfg, where):
             fail(f"{where}: the kernel vs plain step check passed with "
                  f"{fault}")
     return {"plain_loss_rel": loss_rel, "plain_grad_cos": grad_cos,
-            "plain_matching_grad_cos": match_cos, "planted_faults": faults,
-            "kernel_loss": lk, "plain_loss": lp}
+            "plain_matching_grad_cos": match_cos,
+            "planted_faults": planted_faults, "kernel_loss": lk,
+            "plain_loss": lp}
 
 
 def train_phase(torch, counters):
@@ -1931,6 +1947,353 @@ def exec_s2d_phase(torch, spamat, counters, roots, out_dir, plain_epe):
             "step_ms": times, "launches": launches}
 
 
+# The DrivingStereo fixture (tests/fixtures/drivingstereo): three 400x881
+# scenes, JPEG views written by cv2, and the manifest of their decodes'
+# SHA-256s and of the JAX CLI's EPE on them (ckpt_faithful, bf16, CPU).
+# `cli.eval` on the card must read that EPE within DS_EPE_TOL px.
+DS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "drivingstereo")
+DS_EPE_TOL = 0.05
+JPEG_REPEATS = 5          # decodes of each fixture image timed
+# the model configurations beyond the faithful one, each the faithful
+# recipe (runs/ckpt_faithful/config.json: base_channels 8, max_disp 216,
+# bf16) with one knob changed, on fresh weights from train.seed
+KNOB_WIDTH = (8, 216)     # base_channels, max_disp
+KNOBS = {"cost_func=cat": {"cost_func": "cat"},
+         "cost_func=ssd": {"cost_func": "ssd"},
+         "norm=gn": {"norm": "gn"},
+         "num_stage=3": {"num_stage": 3},
+         "num_stage=2": {"num_stage": 2},
+         "num_stage=1": {"num_stage": 1}}
+# the reference's Middlebury full-resolution setting: stage 3 upsamples
+# stage 2's prediction bicubically and runs no head
+SKIP_STAGE = 3
+# standalone SpaMat / SpaVar, kernel path vs plain path: both accumulate
+# the same f32 products (from the same bf16 features in bf16) in other
+# orders, so each output moves by a few f32 ulps: max |kernel - plain| /
+# max |plain| <= 1e-4, as the f32 backward's bound
+STANDALONE_OUT_TOL = 1e-4
+
+
+def jpeg_files_phase():
+    """Every JPEG of the DrivingStereo fixture decoded on this host by the
+    port's decoder (`data/io.py::read_image`), its SHA-256 against the
+    manifest's of cv2's decode, and the ms an image."""
+    import hashlib
+    from decnet_tpu_torch.data import io as dio
+    with open(os.path.join(DS_FIXTURE, "manifest.json")) as f:
+        manifest = json.load(f)
+    ms = []
+    for rel, want in sorted(manifest["rgb_sha256"].items()):
+        path = os.path.join(DS_FIXTURE, "test", rel)
+        img = dio.read_image(path)
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if img.shape != tuple(manifest["size"]) + (3,) or got != want:
+            fail(f"jpeg_files: {rel} decodes to {img.shape} sha256 {got}, "
+                 f"the manifest says {want}")
+        for _ in range(JPEG_REPEATS):
+            t = time.perf_counter()
+            dio.read_image(path)
+            ms.append((time.perf_counter() - t) * 1e3)
+    print(f"  {len(manifest['rgb_sha256'])} JPEGs of "
+          f"{manifest['size'][0]}x{manifest['size'][1]}: every SHA-256 "
+          f"equal to cv2's; {sum(ms) / len(ms):.3f} ms an image (min "
+          f"{min(ms):.3f}, max {max(ms):.3f}, {len(ms)} decodes)",
+          flush=True)
+    return {"images": len(manifest["rgb_sha256"]), "ms": ms,
+            "mean_ms": sum(ms) / len(ms), "manifest": manifest}
+
+
+def drivingstereo_eval_phase(torch, counters, out_dir, manifest):
+    """`cli.eval --dataset drivingstereo` of ckpt_faithful on the fixture
+    tree (batch 1, bf16): its EPE against the manifest's JAX EPE, the
+    launches (3 moments and 3 warps a forward), and each scene through the
+    kernel path against the plain path."""
+    import numpy as np
+    from decnet_tpu_torch.cli import eval as teval
+    from decnet_tpu_torch.data import get_dataset
+    from decnet_tpu_torch.weights import load_checkpoint
+    zero_launches(counters)
+    res = teval.main(["--dataset", "drivingstereo", "--root", DS_FIXTURE,
+                      "--test_split", "test", "--batch_size", "1",
+                      "--resume", CKPT, "--num_workers", "4",
+                      "--save2where", out_dir, "--device", DEV])
+    res["launches"] = check_forward_launches(
+        counters, len(res["max_disp"]), "drivingstereo_eval")
+    want = manifest["jax_eval"]
+    delta = abs(res["mean_epe"] - want["mean_epe"])
+    model = load_checkpoint(CKPT, device=DEV)
+    ds = get_dataset("drivingstereo", DS_FIXTURE, split="test",
+                     is_training=False)
+    deltas = [kernel_vs_plain_batch(torch, model, ds, i, counters,
+                                    "drivingstereo_eval")[0]
+              for i in range(len(ds))]
+    del model
+    torch.cuda.empty_cache()
+    res.update(jax_mean_epe=want["mean_epe"], epe_delta=delta,
+               plain_mean_abs_delta_px=deltas,
+               ms_per_batch=1e3 * float(np.mean(res["seconds"][1:])))
+    print(f"  drivingstereo ({len(res['epe'])} scenes of "
+          f"{manifest['size'][0]}x{manifest['size'][1]}, max_disp "
+          f"{sorted(set(res['max_disp']))}): mean EPE {res['mean_epe']:.5g} "
+          f"(per scene " + ", ".join(f"{e:.4f}" for e in res["epe"])
+          + f"), JAX's {want['mean_epe']} (per scene "
+          + ", ".join(map(str, want["epe_per_scene"]))
+          + f"): |delta| {delta:.4g}, tol {DS_EPE_TOL}; "
+          f"{res['ms_per_batch']:.2f} ms a batch; launches "
+          f"{json.dumps(res['launches'])}; kernel vs plain mean |delta "
+          f"disp| " + ", ".join(f"{d:.4g}" for d in deltas) + " px",
+          flush=True)
+    if not delta <= DS_EPE_TOL:
+        fail(f"drivingstereo_eval: mean EPE {res['mean_epe']:.5g}, JAX's "
+             f"{want['mean_epe']}: |delta| {delta:.4g} > {DS_EPE_TOL}")
+    return res
+
+
+def model_knobs_phase(torch, spamat, counters, gen):
+    """Each configuration of KNOBS built by the train CLI's entry
+    (`prepare` from the faithful recipe with `--set model.<knob>`, fresh
+    weights): one 540x972 request (host masks, `predict`) kernel path
+    against plain path, with its launches (the moments and the warp once
+    a fine stage, none with one stage); then one train step at B = 8 of
+    162x486 held to a plain-path step (`step_checks`, without planted
+    faults), timed, with its launches and peak memory."""
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.cli.demo import host_masks, predict
+    from decnet_tpu_torch.data.synthetic import synthetic_pair
+    from decnet_tpu_torch.train.step import train_step
+    H, W, D = SERVE
+    left, right, gt, valid = synthetic_pair(H, W, gen, DEV)
+    ckpt_dir = os.path.join(ROOT, "build", "decnet_tpu_torch",
+                            "smoke_ckpt_knobs")
+    out = {}
+    for name, knob in KNOBS.items():
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        argv = ["--config", os.path.join(CKPT, "config.json"),
+                "--dataset", "synthetic", "--steps", "1", "--ckpt_dir",
+                ckpt_dir, "--device", DEV]
+        for k, v in knob.items():
+            argv += ["--set", f"model.{k}={v}"]
+        run = tcli.prepare(argv)
+        cfg, model = run.cfg, run.state.model
+        n_fine = cfg.model.num_stage - 1
+        if (cfg.model.base_channels, cfg.model.max_disp) != KNOB_WIDTH or any(
+                getattr(cfg.model, k) != v for k, v in knob.items()):
+            fail(f"model_knobs {name}: config {cfg.model}")
+        # one request, eval mode
+        model.eval()
+        masks = host_masks(left, right, cfg.model)
+        with torch.no_grad():
+            predict(model, left, right, *masks, D)          # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches(counters)
+            t = time.perf_counter()
+            pred = predict(model, left, right, *masks, D)
+            torch.cuda.synchronize()
+            req_ms = (time.perf_counter() - t) * 1e3
+            req_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            launches = count_launches(counters)
+            model.use_kernels = False
+            plain = predict(model, left, right, *masks, D)
+            model.use_kernels = True
+        want = {k: n_fine if k in ("spamat_moments", "warp") else 0
+                for k in counters}
+        if launches != want or count_launches(counters) != launches:
+            fail(f"model_knobs {name}: request launches {launches} (then "
+                 f"{count_launches(counters)} after the plain path), "
+                 f"expected {want}")
+        if pred.shape != (1, H, W) or not torch.isfinite(pred).all():
+            fail(f"model_knobs {name}: prediction {tuple(pred.shape)} not "
+                 f"finite")
+        delta = float((plain - pred).abs().mean())
+        if not delta <= SERVE_MEAN_TOL:
+            fail(f"model_knobs {name} kernel vs plain path: mean |delta "
+                 f"disp| {delta:.4g} px > {SERVE_MEAN_TOL}")
+        # one train step, and the step checks on the same batch
+        b = next(run.stream)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(counters)
+        t = time.perf_counter()
+        logs = run.step(b)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        step_launches = count_launches(counters)
+        if step_launches != {k: n_fine for k in counters}:
+            fail(f"model_knobs {name}: step launches {step_launches}, "
+                 f"expected {n_fine} of each kernel")
+        if not math.isfinite(float(logs["total"])):
+            fail(f"model_knobs {name}: non-finite loss")
+        checks = step_checks(torch, spamat, model, b, cfg,
+                             f"model_knobs {name}", faults={})
+        del run, model
+        torch.cuda.empty_cache()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        out[name] = {"request_ms": req_ms, "request_peak_mem_mb": req_peak,
+                     "request_launches": launches,
+                     "plain_mean_abs_delta_px": delta,
+                     "epe_px": float((pred - gt).abs()[valid].mean()),
+                     "step_ms": step_ms, "step_peak_mem_mb": step_peak,
+                     "step_launches": step_launches,
+                     "loss": float(logs["total"]), **checks}
+        print(f"  {name}: request {req_ms:.3f} ms (peak {req_peak:.1f} "
+              f"MiB, launches {json.dumps(launches)}, kernel vs plain mean "
+              f"|delta disp| {delta:.5g} px); step B={b['left'].shape[0]} "
+              f"{step_ms:.2f} ms (peak {step_peak:.1f} MiB, launches "
+              f"{json.dumps(step_launches)}, loss {float(logs['total']):.5g})"
+              + ("" if n_fine else "; one stage: no fine stage, so no "
+                 "kernel launches and no matching-input check"), flush=True)
+    return out
+
+
+def middlebury_full_skip_phase(torch, counters):
+    """The Middlebury-F forward of datasets_eval (1998x2970, max_disp 810)
+    with ckpt_faithful built for skip_stage_id 3: kernel path against
+    plain path, stage 3 launching nothing (2 moments and 2 warps a
+    forward), time and peak memory beside the unskipped forward's on the
+    same inputs in this run."""
+    from decnet_tpu_torch.cli.demo import host_masks, predict
+    from decnet_tpu_torch.weights import load_checkpoint
+    h, w = MID_F_SHAPE
+    with raw_scenes() as ds:
+        b = next(ds.device_batch_stream(17, val=True, batch=1, h=h, w=w,
+                                        max_disp=MID_F_NDISP, device=DEV))
+    left, right = b["left"] / 255.0, b["right"] / 255.0
+    valid = (b["gt"] > 0) & (b["gt"] < MID_F_NDISP)
+    out = {}
+    for name, kw in (("skip", {"skip_stage_id": SKIP_STAGE}),
+                     ("full", {})):
+        model = load_checkpoint(CKPT, device=DEV, **kw)
+        masks = host_masks(left, right, model.cfg)
+        with torch.no_grad():
+            predict(model, left, right, *masks, MID_F_NDISP)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches(counters)
+            t = time.perf_counter()
+            pred = predict(model, left, right, *masks, MID_F_NDISP)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            launches = count_launches(counters)
+            model.use_kernels = False
+            plain = predict(model, left, right, *masks, MID_F_NDISP)
+            model.use_kernels = True
+        fine = SKIP_STAGE - 1 if name == "skip" else 3
+        want = {k: fine if k in ("spamat_moments", "warp") else 0
+                for k in counters}
+        if launches != want or count_launches(counters) != launches:
+            fail(f"middlebury_full_skip {name}: launches {launches}, "
+                 f"expected {want} (stage 3 launches nothing when skipped)")
+        if pred.shape != (1, h, w) or not torch.isfinite(pred).all():
+            fail(f"middlebury_full_skip {name}: prediction "
+                 f"{tuple(pred.shape)} not finite")
+        delta = float((plain - pred).abs().mean())
+        if not delta <= SERVE_MEAN_TOL:
+            fail(f"middlebury_full_skip {name} kernel vs plain path: mean "
+                 f"|delta disp| {delta:.4g} px > {SERVE_MEAN_TOL}")
+        out[name] = {"ms": ms, "peak_mem_mb": peak, "launches": launches,
+                     "plain_mean_abs_delta_px": delta,
+                     "epe_px": float((pred - b["gt"]).abs()[valid].mean())}
+        print(f"  middlebury_f {h}x{w} max_disp {MID_F_NDISP} {name}: "
+              f"{ms:.2f} ms, peak {peak:.1f} MiB, EPE "
+              f"{out[name]['epe_px']:.4g} px, launches "
+              f"{json.dumps(launches)}, kernel vs plain mean |delta disp| "
+              f"{delta:.4g} px", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def standalone_matching_phase(torch, spamat, gen):
+    """`ops/matching.py::sparse_matching` and `sparse_var` (default and
+    full_grad) on their kernel path (the moments, dRef and dTar kernels)
+    against their plain path at the three fine-stage shapes of a request,
+    f32 and bf16: the outputs (STANDALONE_OUT_TOL of the largest plain
+    output), the ref and tar gradients and SpaVar's disparity gradient
+    (BWD_TOL of the largest plain gradient).
+    Then SpaMat's gradients with dRef or dTar zeroed, which the same check
+    must reject."""
+    from decnet_tpu_torch.ops import matching as tm
+
+    def run(fn, ref, tar, disp, g, use_kernel, **kw):
+        r = ref.detach().clone().requires_grad_()
+        t = tar.detach().clone().requires_grad_()
+        d = disp.detach().clone().requires_grad_()
+        args = (r, t, rm, tmk) + ((d,) if fn is tm.sparse_var else ())
+        o = fn(*args, D, use_kernel=use_kernel, **kw)
+        o.backward(g)
+        return o.detach(), r.grad, t.grad, d.grad
+
+    def rel(a, b):
+        if a is None or b is None:
+            return 0.0 if a is b else float("inf")
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        return err / scale if scale > 0 else (0.0 if err == 0 else
+                                              float("inf"))
+
+    rec = []
+    for C, H, W, D in STAGES:
+        rm, tmk, feat32, tar32, disp = stage_inputs(torch, gen, 1, C, H, W, D)
+        g = torch.randn(1, H, W, generator=gen, device=DEV)
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            ref, tar = feat32.to(dt), tar32.to(dt)
+            for op, fn, kw in (("sparse_matching", tm.sparse_matching, {}),
+                               ("sparse_var", tm.sparse_var, {}),
+                               ("sparse_var_full_grad", tm.sparse_var,
+                                {"full_grad": True})):
+                got = run(fn, ref, tar, disp, g, True, **kw)
+                want = run(fn, ref, tar, disp, g, False, **kw)
+                torch.cuda.synchronize()
+                out_err = rel(got[0], want[0])
+                errs = {k: rel(a, b) for k, a, b in zip(
+                    ("ref", "tar", "disparity"), got[1:], want[1:])}
+                case = f"{op} C={C} H={H} W={W} D={D} {dname}"
+                print(f"  {case}: output rel err {out_err:.4g}, "
+                      + ", ".join(f"{k} grad rel err {v:.4g}"
+                                  for k, v in errs.items()), flush=True)
+                if not out_err <= STANDALONE_OUT_TOL or not all(
+                        v <= BWD_TOL[dname] for v in errs.values()):
+                    fail(f"standalone_matching {case}: output rel err "
+                         f"{out_err:.4g} (tol {STANDALONE_OUT_TOL}), "
+                         f"gradients {errs} (tol {BWD_TOL[dname]})")
+                if op == "sparse_var" and (got[1].any() or got[2].any()):
+                    fail(f"standalone_matching {case}: feature gradients "
+                         f"without full_grad")
+                rec.append({"op": op, "shape": [C, H, W, D], "dtype": dname,
+                            "output_rel_err": out_err,
+                            **{f"{k}_grad_rel_err": v
+                               for k, v in errs.items()}})
+    # a zeroed backward kernel must fail the gradient check
+    C, H, W, D = STAGES[1]
+    rm, tmk, feat32, tar32, disp = stage_inputs(torch, gen, 1, C, H, W, D)
+    g = torch.randn(1, H, W, generator=gen, device=DEV)
+    want = run(tm.sparse_matching, feat32, tar32, disp, g, False)
+    faults = {}
+    for fault in ("dref_zeroed", "dtar_zeroed"):
+        name, _, planted = FAULTS[fault]
+        real = getattr(spamat, name)
+        setattr(spamat, name, functools.wraps(real)(planted(torch, real)))
+        try:
+            got = run(tm.sparse_matching, feat32, tar32, disp, g, True)
+        finally:
+            setattr(spamat, name, real)
+        errs = {k: rel(a, b) for k, a, b in zip(("ref", "tar"), got[1:3],
+                                                want[1:3])}
+        rejected = not all(v <= BWD_TOL["float32"] for v in errs.values())
+        faults[fault] = {**errs, "rejected": rejected}
+        print(f"  planted fault {fault}: ref grad rel err "
+              f"{errs['ref']:.4g}, tar {errs['tar']:.4g} -> "
+              f"{'rejected' if rejected else 'passed'}", flush=True)
+        if not rejected:
+            fail(f"standalone_matching: the gradient check passed with "
+                 f"{fault}")
+    return {"cases": rec, "planted_faults": faults}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -1972,7 +2335,8 @@ def main():
     # -- 2. build
     t0 = time.perf_counter()
     results = build.build(["spamat_moments", "warp", "spamat_backward",
-                           "spamat_dtar", build.HOST_LIB])
+                           "spamat_dtar", build.HOST_LIB, build.PNG_LIB,
+                           build.JPEG_LIB])
     for r in results:
         for line in r.ptxas.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -2289,6 +2653,78 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # -- 11. DrivingStereo's JPEG files, decoded and evaluated
+    t0 = time.perf_counter()
+    jpeg = jpeg_files_phase()
+    phase("jpeg_files", t0, images=jpeg["images"], sha256_equal=True,
+          ms_per_image=f"{jpeg['mean_ms']:.3f}",
+          ms_range=f"{min(jpeg['ms']):.3f}-{max(jpeg['ms']):.3f}")
+    t0 = time.perf_counter()
+    ds_out = tempfile.mkdtemp(prefix="decnet_smoke_ds_")
+    try:
+        dse_ds = drivingstereo_eval_phase(torch, counters, ds_out,
+                                          jpeg["manifest"])
+    finally:
+        shutil.rmtree(ds_out, ignore_errors=True)
+    phase("drivingstereo_eval", t0, mean_epe=f"{dse_ds['mean_epe']:.5g}",
+          jax_mean_epe=dse_ds["jax_mean_epe"],
+          epe_delta=f"{dse_ds['epe_delta']:.4g}",
+          ms_per_batch=f"{dse_ds['ms_per_batch']:.2f}",
+          launches=json.dumps(dse_ds["launches"]),
+          plain_mean_abs_delta_px=",".join(
+              f"{d:.4g}" for d in dse_ds["plain_mean_abs_delta_px"]))
+
+    # -- 12. the model configurations beyond the faithful one
+    t0 = time.perf_counter()
+    knobs = model_knobs_phase(torch, spamat, counters, gen)
+    phase("model_knobs", t0, configs=",".join(knobs),
+          request_ms=",".join(f"{v['request_ms']:.2f}"
+                              for v in knobs.values()),
+          step_ms=",".join(f"{v['step_ms']:.2f}" for v in knobs.values()),
+          peak_mem_mb=",".join(
+              f"{v['request_peak_mem_mb']:.0f}/{v['step_peak_mem_mb']:.0f}"
+              for v in knobs.values()),
+          plain_mean_abs_delta_px=",".join(
+              f"{v['plain_mean_abs_delta_px']:.4g}" for v in knobs.values()),
+          plain_loss_rel=",".join(f"{v['plain_loss_rel']:.3g}"
+                                  for v in knobs.values()),
+          plain_grad_cos=",".join(f"{v['plain_grad_cos']:.6f}"
+                                  for v in knobs.values()),
+          plain_matching_grad_cos=",".join(
+              f"{v['plain_matching_grad_cos']:.6f}" for v in knobs.values()),
+          launches=json.dumps({k: [v["request_launches"]["spamat_moments"],
+                                   v["step_launches"]["spamat_dref"]]
+                               for k, v in knobs.items()}))
+
+    # -- 13. Middlebury-F with the bicubic skip of stage 3
+    t0 = time.perf_counter()
+    skip = middlebury_full_skip_phase(torch, counters)
+    phase("middlebury_full_skip", t0, size=f"{MID_F_SHAPE[0]}x"
+          f"{MID_F_SHAPE[1]}", max_disp=MID_F_NDISP,
+          skip_stage_id=SKIP_STAGE, ms=f"{skip['skip']['ms']:.2f}",
+          unskipped_ms=f"{skip['full']['ms']:.2f}",
+          peak_mem_mb=f"{skip['skip']['peak_mem_mb']:.1f}",
+          unskipped_peak_mem_mb=f"{skip['full']['peak_mem_mb']:.1f}",
+          launches=json.dumps(skip["skip"]["launches"]),
+          plain_mean_abs_delta_px="{:.4g}".format(
+              skip["skip"]["plain_mean_abs_delta_px"]),
+          epe_px=f"{skip['skip']['epe_px']:.4g}",
+          unskipped_epe_px=f"{skip['full']['epe_px']:.4g}")
+
+    # -- 14. standalone SpaMat and SpaVar against their plain versions
+    t0 = time.perf_counter()
+    standalone = standalone_matching_phase(torch, spamat, gen)
+    phase("standalone_matching", t0, cases=len(standalone["cases"]),
+          max_output_rel_err="{:.3g}".format(max(
+              c["output_rel_err"] for c in standalone["cases"])),
+          max_grad_rel_err="{:.3g}".format(max(
+              max(c[f"{k}_grad_rel_err"] for k in ("ref", "tar",
+                                                   "disparity"))
+              for c in standalone["cases"])),
+          planted_faults=",".join(
+              f"{k}:{'rejected' if v['rejected'] else 'passed'}"
+              for k, v in standalone["planted_faults"].items()))
+
     # -- 9. the kernels line: per kernel, the launches of each path's run;
     # times summed over the three fine-stage shapes of its main path
     # (serving, one 540x972 request, for the forward kernels; a training
@@ -2325,6 +2761,12 @@ def main():
         if name == "warp":
             by_path["train_s2d"] = train_s2d["launches"][name]
         by_path["packed_exec_train"] = exs["launches"]["packed"][name]
+        if name in launches:
+            by_path["drivingstereo_eval"] = dse_ds["launches"][name]
+            by_path["middlebury_full_skip"] = skip["skip"]["launches"][name]
+        by_path["model_knobs"] = sum(
+            v["request_launches"][name] + v["step_launches"][name]
+            for v in knobs.values())
         k = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1],
              "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2414,6 +2856,11 @@ def main():
                        "demo_cli": demo_cli,
                        "parity_bench": parity_bench, "bench": bench_run,
                        "serve_flagship": flagship, "exec_s2d": exs,
+                       "jpeg_files": {k: v for k, v in jpeg.items()
+                                      if k != "manifest"},
+                       "drivingstereo_eval": dse_ds, "model_knobs": knobs,
+                       "middlebury_full_skip": skip,
+                       "standalone_matching": standalone,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,

@@ -23,6 +23,8 @@ _IGNORED_KEYS = frozenset((
     "sample_spa_size_list", "conv3d_impl", "split_concat"))
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+COST_FUNCS = ("cor", "cat", "ssd")
+NORMS = ("bn", "gn")
 GRAD_METHODS = ("detach", "undetach")
 THOLD_MODES = ("fixed", "quantile")
 VARIANTS = ("default", "stressor", "legacy")
@@ -38,15 +40,17 @@ def _refuse(section: str, obj, unsupported: dict, where: str = ""):
 
 @dataclasses.dataclass
 class ModelConfig:
-    """Architecture of DecNet: the faithful (reference-form) model, with
-    learned detail heads (`use_detail`), the space-to-depth twins of the
-    full-resolution stage (`s2d_fine`, `s2d_stages` 1) and of the 1/3-res
-    stage too (`s2d_stages` 2), and the prior-windowed matching
-    (`match_window`).
+    """Architecture of DecNet: the faithful (reference-form) model with 1
+    to 4 stages (`num_stage`), the `cor`, `cat` or `ssd` cost, batch or
+    group norm (`norm`), the bicubic skip of the fine stages from
+    `skip_stage_id` on, learned detail heads (`use_detail`), the
+    space-to-depth twins of the full-resolution stage (`s2d_fine`,
+    `s2d_stages` 1) and of the 1/3-res stage too (`s2d_stages` 2), and the
+    prior-windowed matching (`match_window`).
 
-    Values the port does not implement yet (the bicubic skip of fine
-    stages, other costs or norms) are refused at construction rather than
-    ignored."""
+    Values are validated as the JAX package's asserts do
+    (decnet_tpu/config.py:105-109), and a dtype the port has no torch type
+    for is refused."""
     max_disp: int = 216
     base_channels: int = 8
     num_stage: int = 4
@@ -55,7 +59,7 @@ class ModelConfig:
     # "detach": the coarser stage's prediction enters DynamicUpsampling
     # without gradient (the reference detaches cross-stage predictions)
     grad_method: str = "detach"
-    skip_stage_id: int = 4          # stages >= this would upsample bicubically
+    skip_stage_id: int = 4          # stages >= this upsample bicubically
     use_detail: bool = False        # False: masks come from the caller
     thold: float = 0.9              # detail > thold (fixed mode)
     thold_mode: str = "fixed"       # fixed | quantile (shared by the pair)
@@ -80,20 +84,25 @@ class ModelConfig:
         if self.thold_mode not in THOLD_MODES:
             raise ValueError(f"thold_mode must be one of {THOLD_MODES}, "
                              f"got {self.thold_mode!r}")
+        if self.cost_func not in COST_FUNCS:
+            raise ValueError(f"cost_func must be one of {COST_FUNCS}, got "
+                             f"{self.cost_func!r}")
+        if self.norm not in NORMS:
+            raise ValueError(f"norm must be one of {NORMS}, got "
+                             f"{self.norm!r}")
+        if not 1 <= self.num_stage <= 4:
+            raise ValueError(f"num_stage must be 1 to 4, got "
+                             f"{self.num_stage}")
         if self.s2d_fine and self.s2d_stages not in (1, 2):
             # the extractor packs only its full-res and 1/3-res levels
             raise ValueError(f"s2d_stages must be 1 or 2 with s2d_fine, "
                              f"got {self.s2d_stages}")
-        _refuse("ModelConfig", self, {
-            "skip_stage_id": self.skip_stage_id < self.num_stage,
-            "cost_func": self.cost_func != "cor",
-            "norm": self.norm != "bn"},
-            " (ROADMAP.md section 1, item 5: the cat/ssd costs, the gn norm "
-            "and the bicubic skip of fine stages)")
-        _refuse("ModelConfig", self, {
-            "num_stage": self.num_stage != 4,
-            "dtype": self.dtype not in DTYPES,
-        })
+        if self.s2d_fine and 1 < self.num_stage <= self.s2d_stages:
+            # stage 0 would get packed features (JAX feeds them to its cost
+            # volume as they are)
+            raise ValueError(f"s2d_stages ({self.s2d_stages}) must be below "
+                             f"num_stage ({self.num_stage}) with s2d_fine")
+        _refuse("ModelConfig", self, {"dtype": self.dtype not in DTYPES})
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -18,7 +18,8 @@ File formats (as the reference's loaders):
 * Middlebury — .pkl dicts {ndisp, im0, im1, disparity, disparity_right};
                per-scene ndisp drives max_disp.
 * DrivingStereo — directory triplets left-image/right-image/disparity-map
-               (/256), PNG (JPEG is refused: ROADMAP.md section 1, item 10).
+               (/256); the views JPEG (the release's) or PNG, the
+               disparities uint16 PNG.
 
 Masks: `mask_source` "compute" (the native Gaussian-residual pipeline,
 `data/masks.py`), "precomputed" (the pickles, computed where absent) or
@@ -349,7 +350,8 @@ class Middlebury(StereoDataset):
 
 
 class DrivingStereo(StereoDataset):
-    """Raw directory triplets (DrivingStereoMask.py:90-96), PNG images."""
+    """Raw directory triplets (DrivingStereoMask.py:90-96): JPEG or PNG
+    views, uint16 disparity PNGs; eval zeroes gt[:130]."""
 
     def __init__(self, root, split="train", **kw):
         super().__init__(root, split, **kw)

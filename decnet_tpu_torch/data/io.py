@@ -8,7 +8,17 @@ filters (None, Sub, Up, Average, Paeth) undone by
 (`ops/kernels/build.py`).  8- and 16-bit gray, gray+alpha, RGB and RGBA
 are read; palette, interlaced and 1/2/4-bit files are refused with an
 error.  Written files are 8-bit gray/RGB/RGBA or 16-bit gray, filter 0.
-JPEG is refused (ROADMAP.md section 1, item 10).
+
+JPEG files (DrivingStereo's images) are decoded by
+`csrc/host/jpeg_decode.cc`, built by g++ at first use like the PNG
+unfilter and called through ctypes: baseline and extended-sequential
+Huffman files of 8-bit gray or YCbCr, equal in every pixel to
+`cv2.imread` (libjpeg-turbo's ISLOW inverse DCT, fancy upsampling and
+fixed-point colour conversion).  Progressive, arithmetic-coded, lossless,
+12-bit, CMYK and RGB-coded files, and files with an EXIF orientation other
+than 1 (cv2 would rotate them), are refused with NotImplementedError.
+`read_image` and `read_disparity_png` pick the decoder by the file's
+first bytes, not by its extension.
 
 PFM files (SceneFlow's disparities) are read and written in numpy
 (`read_pfm`, `write_pfm`) or decoded by `native/decnet_native.cc`
@@ -37,10 +47,9 @@ _MEAN_NP = np.array(IMAGENET_MEAN, np.float32)
 _STD_NP = np.array(IMAGENET_STD, np.float32)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8"
 # PNG colour type -> channels (0 gray, 2 RGB, 4 gray+alpha, 6 RGBA)
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-_JPEG_REFUSAL = ("JPEG decoding is not ported (ROADMAP.md section 1, item 10: "
-                 "the card's machine has no cv2 or PIL)")
 
 
 def pad_to_multiple(img: torch.Tensor, multiple: int = 27) -> torch.Tensor:
@@ -181,19 +190,61 @@ def write_png(path: str, img: np.ndarray):
         f.write(encode_png(img))
 
 
+# -- JPEG ---------------------------------------------------------------
+
+def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """The pixels of a JPEG file's bytes: (H,W) uint8 for gray, (H,W,3)
+    uint8 RGB for colour, by `csrc/host/jpeg_decode.cc`.  A file of a kind
+    the decoder refuses raises NotImplementedError, a corrupt one
+    ValueError; both name `path`."""
+    lib = build.load(build.JPEG_LIB, {"decnet_jpeg_decode": [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]})
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(256)
+
+    def call(out, cap):
+        return lib.decnet_jpeg_decode(data, len(data), out, cap,
+                                      ctypes.byref(h), ctypes.byref(w),
+                                      ctypes.byref(c), msg, len(msg))
+
+    rc = call(None, 0)
+    if rc == 3:
+        img = np.empty((h.value, w.value, c.value), np.uint8)
+        rc = call(img.ctypes.data_as(ctypes.c_void_p), img.size)
+    if rc == 1:
+        raise NotImplementedError(f"{path}: {msg.value.decode()} is not "
+                                  f"decoded; baseline 8-bit gray or YCbCr "
+                                  f"JPEG is (ROADMAP.md section 3)")
+    if rc != 0:
+        raise ValueError(f"{path}: {msg.value.decode()}")
+    return img[..., 0] if c.value == 1 else img
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """`decode_jpeg` of a file."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read(), path)
+
+
 # -- the readers the datasets and the demo use --------------------------
 
-def _refuse_jpeg(path: str):
-    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(f"{path}: {_JPEG_REFUSAL}")
+def _read_samples(path: str) -> Tuple[np.ndarray, bool]:
+    """(a PNG's samples or a JPEG's pixels, whether it was a JPEG), by the
+    file's first bytes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data, path), True
+    return decode_png(data, path), False
 
 
 def read_image(path: str) -> np.ndarray:
-    """RGB uint8 (H,W,3) of a PNG file, as cv2.imread(IMREAD_COLOR) then
-    BGR->RGB reads it: gray replicated, alpha dropped, 16-bit samples cut
-    to their high byte."""
-    _refuse_jpeg(path)
-    img = read_png(path)
+    """RGB uint8 (H,W,3) of a PNG or JPEG file, as cv2.imread(IMREAD_COLOR)
+    then BGR->RGB reads it: gray replicated, alpha dropped, 16-bit samples
+    cut to their high byte."""
+    img, _ = _read_samples(path)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     elif img.shape[2] == 2:
@@ -206,9 +257,13 @@ def read_image(path: str) -> np.ndarray:
 
 
 def read_disparity_png(path: str, scale: float = 256.0) -> np.ndarray:
-    """KITTI / DrivingStereo uint16 disparity PNG, value / scale, f32."""
-    _refuse_jpeg(path)
-    return read_png(path).astype(np.float32) / scale
+    """KITTI / DrivingStereo disparity file, value / scale, f32: its samples
+    as cv2.imread(IMREAD_UNCHANGED) reads them (a uint16 PNG; a colour JPEG
+    in BGR order)."""
+    img, is_jpeg = _read_samples(path)
+    if is_jpeg and img.ndim == 3:
+        img = img[..., ::-1]
+    return img.astype(np.float32) / scale
 
 
 def write_submission_png(path: str, disp: np.ndarray,

@@ -1,13 +1,18 @@
 """DecNet forward for serving and training — the port of
-decnet_tpu/models/decnet.py:47-376 for the faithful model, its learned
-detail heads (`use_detail`), the space-to-depth twins of the
-full-resolution stage (`s2d_fine`, s2d_stages 1) and of the 1/3-res stage
-too (s2d_stages 2), and the prior-windowed matching (`match_window`).
+decnet_tpu/models/decnet.py:47-376 for the faithful model with 1 to 4
+stages, the `cor`, `cat` and `ssd` costs, batch or group norm, the bicubic
+skip of fine stages, its learned detail heads (`use_detail`), the
+space-to-depth twins of the full-resolution stage (`s2d_fine`, s2d_stages
+1) and of the 1/3-res stage too (s2d_stages 2), and the prior-windowed
+matching (`match_window`).
 
-Per forward pass:
-  stage 0 (1/27): uniform warped `cor` cost volume -> 3D-conv regulariser
+Per forward pass (four stages; with fewer, stage 0 is at 1/3^(ns-1)):
+  stage 0 (1/27): uniform warped cost volume -> 3D-conv regulariser
                   -> soft-argmin disparity;
-  stages 1..3:    detail masks, from the caller or from the learned heads
+  stages >= skip_stage_id: the previous prediction times the scale,
+                  upsampled bicubically, and no head runs (the reference's
+                  Middlebury full-resolution setting);
+  other stages 1..3: detail masks, from the caller or from the learned heads
                   (binarised, `binarise_detail_pair`); dynamic upsampling
                   of the coarser prediction (dense branch); sparse matching
                   plus variance on the detail pixels (sparse branch, the
@@ -41,8 +46,8 @@ from decnet_tpu_torch.nn.heads import (CostRegNet, DetailHead, DetailHeadS2D,
                                        DynamicUpsampling, Refinement,
                                        RefinementS2D, SoftAttention,
                                        SoftAttentionS2D)
-from decnet_tpu_torch.nn.layers import (depth_to_space, plane_to_s2d,
-                                        s2d_to_plane)
+from decnet_tpu_torch.nn.layers import (depth_to_space, norm_override,
+                                        plane_to_s2d, s2d_to_plane)
 from decnet_tpu_torch.ops.cost_volume import build_cost_volume_uniform
 from decnet_tpu_torch.ops.kernels import warp as warp_kernel
 from decnet_tpu_torch.ops.matching import (candidate_availability,
@@ -50,6 +55,7 @@ from decnet_tpu_torch.ops.matching import (candidate_availability,
                                            sparse_matching_with_var)
 from decnet_tpu_torch.ops.regression import (disparity_regression,
                                              uniform_disp_samples)
+from decnet_tpu_torch.ops.resize import interpolate
 
 OUTPUT_KEYS = ("preds", "dense", "sparse", "sparse_raw", "fusion",
                "soft_mask", "var", "residual", "left_details",
@@ -105,10 +111,14 @@ def binarise_detail_pair(l_detail: torch.Tensor, r_detail: torch.Tensor,
     return cut(l_detail), cut(r_detail)
 
 
+HEAD_NAMES = ("detail", "dyn_up", "soft_att", "refine", "match_logt")
+
+
 class DecNet(nn.Module):
     """DecNet.  Module and parameter names follow the flax model's
     (`feature_extractor`, `cost_reg`, `detail_i`, `dyn_up_i`, `soft_att_i`,
     `refine_i`, `match_logt_i`), so `weights.py` maps checkpoints by name.
+    As in the flax model, a stage from `skip_stage_id` on has no heads.
 
     `use_kernels` (default True) sends the sparse matching (forward and
     backward) and the Refinement warp through the kernel wrappers; False
@@ -119,16 +129,21 @@ class DecNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
+        with norm_override(cfg.norm):
+            self._build(cfg)
+
+    def _build(self, cfg: ModelConfig):
         dtype = cfg.torch_dtype
         s, ns = cfg.down_scale, cfg.num_stage
         self.feature_extractor = FeatureExtractor(
             cfg.base_channels, s, s2d_last=cfg.s2d_fine,
-            s2d_mid=cfg.s2d_fine and cfg.s2d_stages >= 2, dtype=dtype)
+            s2d_mid=cfg.s2d_fine and cfg.s2d_stages >= 2, dtype=dtype,
+            num_stage=ns)
         chans = self.feature_extractor.out_channels
         # each stage's channels unpacked: what the next detail head reads
         plain = [cfg.base_channels * s ** (ns - 1 - st) for st in range(ns)]
-        self.cost_reg = CostRegNet(chans[0], dtype=dtype)
-        for stage in range(1, ns):
+        self.cost_reg = CostRegNet(chans[0], cfg.cost_func, dtype=dtype)
+        for stage in range(1, min(ns, cfg.skip_stage_id)):
             c, i = chans[stage], stage - 1
             if self._s2d(stage):
                 # the packed twins keep the faithful stage's widths:
@@ -164,6 +179,15 @@ class DecNet(nn.Module):
                 self.register_parameter(
                     f"match_logt_{i}",
                     nn.Parameter(torch.tensor(math.log(cfg.match_temp))))
+
+    def skipped_heads(self) -> Tuple[str, ...]:
+        """Name prefixes ("refine_2.", ...) of the heads the fine stages
+        from skip_stage_id on would have: a full checkpoint's arrays under
+        them have no tensor here."""
+        first = max(self.cfg.skip_stage_id, 1)
+        return tuple(f"{h}_{stage - 1}" + ("" if h == "match_logt" else ".")
+                     for stage in range(first, self.cfg.num_stage)
+                     for h in HEAD_NAMES)
 
     def _s2d(self, stage: int) -> bool:
         """Whether fine stage `stage` runs in s2d form: the last
@@ -217,6 +241,14 @@ class DecNet(nn.Module):
             i = stage - 1
             s2d = self._s2d(stage)
             lf, rf = left_all[stage], right_all[stage]
+            if stage >= cfg.skip_stage_id:
+                H, W = lf.shape[-2:]
+                if s2d:
+                    H, W = H * scale, W * scale
+                pred = interpolate((pred * scale)[:, None], H, W,
+                                   "bicubic")[:, 0]
+                out["preds"].append(pred)
+                continue
             # the matching and the warp read the stage's unpacked features
             lf_full = depth_to_space(lf, scale) if s2d else lf
             rf_full = depth_to_space(rf, scale) if s2d else rf

@@ -9,6 +9,7 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from decnet_tpu_torch.nn.layers import (ConvUnit, Conv3dUnit, DeconvUnit,
                                         pixel_shuffle, space_to_depth,
@@ -18,17 +19,26 @@ from decnet_tpu_torch.ops.kernels import warp as warp_kernel
 
 class CostRegNet(nn.Module):
     """3D cost aggregation at constant resolution: 2 convs, a 3-conv
-    residual block, 3 convs ending in 1 channel.  (B,C,S,H,W) -> (B,S,H,W)."""
+    residual block, 3 convs ending in 1 channel.  (B,C,S,H,W) -> (B,S,H,W).
+    The `cat` cost's volume has 2C channels, which a 1x1x1 convolution
+    without bias or norm (`conv_pre`) brings to C first."""
 
-    def __init__(self, features: int, dtype=torch.float32):
+    def __init__(self, features: int, cost_func: str = "cor",
+                 dtype=torch.float32):
         super().__init__()
         f = features
+        self.dtype = dtype
+        self.conv_pre = (nn.Conv3d(2 * f, f, 1, bias=False, dtype=dtype)
+                         if cost_func == "cat" else None)
         for name in ("conv0_0", "conv0_1", "conv1_0", "conv1_1", "conv1_2",
                      "conv2_0", "conv2_1"):
             self.add_module(name, Conv3dUnit(f, f, dtype=dtype))
         self.conv2_2 = Conv3dUnit(f, 1, relu=False, dtype=dtype)
 
     def forward(self, vol: torch.Tensor) -> torch.Tensor:
+        if self.conv_pre is not None:
+            vol = F.conv3d(vol.to(self.dtype),
+                           self.conv_pre.weight.to(self.dtype))
         x0 = self.conv0_1(self.conv0_0(vol))
         x = self.conv1_2(self.conv1_1(self.conv1_0(x0)))
         x = x + x0

@@ -7,13 +7,102 @@ cast is a no-op; for training `train.step.create_train_state` stores them in
 f32, so that the optimizer updates f32 values.  Batch norm keeps its parameters and
 statistics in f32, folds them into a per-channel multiplier and offset in
 f32 and casts those to the activation dtype, as `FoldedBatchNorm` does in
-JAX.  Submodule names (`conv`, `bn`) are what `weights.py` maps the flax
-names `Conv_0`/`ConvTranspose_0` and `BatchNorm_0` onto."""
+JAX.  With the `gn` norm (`norm_override("gn")` around the model's
+construction, as `ModelConfig.norm` asks) every unit's batch norm is a
+`GroupNorm` instead, as decnet_tpu/nn/layers.py::_make_norm makes it.
+Submodule names (`conv`, `bn`, `gn`) are what `weights.py` maps the flax
+names `Conv_0`/`ConvTranspose_0`, `BatchNorm_0` and `GroupNorm_0` onto."""
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+# The norm of the units built inside `norm_override`: "bn" (the reference's
+# batch norm) or "gn" (GroupNorm in every unit that would have batch norm).
+_NORM = contextvars.ContextVar("decnet_torch_norm", default="bn")
+
+
+@contextlib.contextmanager
+def norm_override(norm: str):
+    """Units built inside use `norm` ("bn" or "gn") for their batch norm."""
+    if norm not in ("bn", "gn"):
+        raise ValueError(f"unknown norm {norm!r}")
+    tok = _NORM.set(norm)
+    try:
+        yield
+    finally:
+        _NORM.reset(tok)
+
+
+def group_count(channels: int) -> int:
+    """The largest divisor of `channels` not above channels // 8 (at
+    least 1): groups of about 8 channels."""
+    cap = max(1, channels // 8)
+    return max(g for g in range(1, cap + 1) if channels % g == 0)
+
+
+class GroupNorm(nn.Module):
+    """flax's nn.GroupNorm(group_count(C), epsilon=1e-6) with f32
+    parameters and a compute dtype: the statistics in f32 over each
+    group's channels and every position (var = max(E[x^2] - E[x]^2, 0),
+    flax's fast variance), then (x - mean) * (rsqrt(var + eps) * scale) +
+    bias in f32, cast to x's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups = group_count(channels)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        G = self.groups
+        xf = x.float()
+        g = xf.reshape(B, G, -1)
+        mean = g.mean(-1)
+        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
+        shape = (B, C) + (1,) * (x.dim() - 2)
+        mean = mean.repeat_interleave(C // G, dim=1).view(shape)
+        inv = torch.rsqrt(var + self.eps).repeat_interleave(C // G, dim=1)
+        mul = (inv * self.weight).view(shape)
+        y = (xf - mean) * mul + self.bias.view((1, C) + (1,) * (x.dim() - 2))
+        return y.to(x.dtype)
+
+
+class _BatchStats(torch.autograd.Function):
+    """(mean, biased variance) of x in f32 over every axis but the
+    channels.  It saves x itself, in its own dtype, where autograd through
+    `x.float().var()` would keep the f32 copy (twice a bf16 activation's
+    bytes, for every batch-norm unit of a step); the backward computes
+    g_mean / n + g_var * 2 (x - mean) / n in f32 from it and casts once,
+    as the cast's own backward would."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = xf.var(dims, unbiased=False)
+        ctx.save_for_backward(x, mean)
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        g = torch.zeros((), device=x.device)
+        if g_mean is not None:
+            g = g + g_mean.view(shape) / n
+        if g_var is not None:
+            g = g + (2.0 / n) * g_var.view(shape) * (x.float()
+                                                     - mean.view(shape))
+        return g.expand(x.shape).to(x.dtype)
 
 
 class FoldedBatchNorm(nn.Module):
@@ -22,7 +111,7 @@ class FoldedBatchNorm(nn.Module):
 
     In eval mode (mean, var) are the running statistics.  In train mode
     they are the batch statistics in f32 over every axis but the channels
-    (the variance biased), and the running statistics move to
+    (the variance biased; `_BatchStats`), and the running statistics move to
     momentum * running + (1 - momentum) * batch, in place.  This is the
     flax convention of the JAX package; torch's own batch norm updates with
     the unbiased variance and the opposite momentum, so it is not used."""
@@ -39,10 +128,7 @@ class FoldedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.float()
-            dims = [0] + list(range(2, x.dim()))
-            mean = xf.mean(dims)
-            var = xf.var(dims, unbiased=False)
+            mean, var = _BatchStats.apply(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -58,13 +144,17 @@ class FoldedBatchNorm(nn.Module):
 
 
 class _Unit(nn.Module):
-    """conv -> optional batch norm -> optional ReLU, the conv in `dtype`."""
+    """conv -> optional norm -> optional ReLU, the conv in `dtype`; the
+    norm is batch norm (`bn`), or group norm (`gn`) when built inside
+    `norm_override("gn")`."""
 
     def __init__(self, conv: nn.Module, out_ch: int, relu: bool, bn: bool,
                  dtype: torch.dtype):
         super().__init__()
         self.conv = conv
-        self.bn = FoldedBatchNorm(out_ch) if bn else None
+        gn = bn and _NORM.get() == "gn"
+        self.bn = FoldedBatchNorm(out_ch) if bn and not gn else None
+        self.gn = GroupNorm(out_ch) if gn else None
         self.relu = relu
         self.dtype = dtype
 
@@ -82,6 +172,8 @@ class _Unit(nn.Module):
         x = self._conv(x)
         if self.bn is not None:
             x = self.bn(x)
+        if self.gn is not None:
+            x = self.gn(x)
         return F.relu(x) if self.relu else x
 
 

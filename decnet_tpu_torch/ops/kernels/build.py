@@ -8,7 +8,7 @@ in .gitignore).  The host libraries are compiled by g++ for this host's
 baseline instruction set: `decnet_native` is `native/decnet_native.cc`
 (the prebuilt `native/libdecnet_native.so` was compiled with
 -march=native elsewhere and is not loaded), `png_unfilter` is
-`csrc/host/png_unfilter.cc`.  A library's file name
+`csrc/host/png_unfilter.cc`, `jpeg_decode` is `csrc/host/jpeg_decode.cc`.  A library's file name
 carries a hash of its sources and flags, so an edited source is rebuilt
 and a stale library never loads.  Nothing here touches PyTorch's C++
 headers: a build takes seconds.
@@ -33,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_LIB = "decnet_native"
 PNG_LIB = "png_unfilter"
+JPEG_LIB = "jpeg_decode"
 HOST_SOURCES = {HOST_LIB: ROOT / "native" / "decnet_native.cc",
-                PNG_LIB: CSRC_DIR / "host" / "png_unfilter.cc"}
+                PNG_LIB: CSRC_DIR / "host" / "png_unfilter.cc",
+                JPEG_LIB: CSRC_DIR / "host" / "jpeg_decode.cc"}
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")
 
 # Loaded libraries by kernel name: loading is idempotent and a process
@@ -68,7 +70,8 @@ def gxx_path() -> str:
     found = shutil.which("g++")
     if not found:
         raise RuntimeError("g++ not found: the host libraries (detail masks, "
-                           "PNG unfiltering) are built at first use")
+                           "PNG unfiltering, JPEG decoding) are built at "
+                           "first use")
     return found
 
 

@@ -1,6 +1,6 @@
 """Masked sparse stereo matching and its variance, with the analytic
-backward — the port of decnet_tpu/ops/matching.py:115-166, :384-433 and the
-windowed twin :590-620.
+backward — the port of decnet_tpu/ops/matching.py:115-166, :215-372,
+:384-433 and the windowed twin :590-620.
 
 For each left pixel with ref_mask != 0 the disparity band of right pixels
 with tar_mask != 0 is scored by a feature dot product; the output is the
@@ -10,6 +10,11 @@ pass of `ops/kernels/spamat.moments`; the backward is
 semantics follow the reference (SM_kernel.cu:45, :100-124): the max is
 clamped to >= 1e-6 and both accumulators carry +1e-6, so a query with no
 candidate outputs exactly 1.0.
+`sparse_matching_with_var` is the model's fused pair; `sparse_matching`
+(SpaMat) and `sparse_var` (SpaVar, around a given disparity) are the
+reference's two ops on their own, over the same moments.  SpaVar's feature
+gradients (`full_grad`) are a loop over d in plain PyTorch on every
+device, as the JAX package computes them in XLA.
 Features are NCHW, masks (B,H,W).
 """
 from __future__ import annotations
@@ -118,3 +123,113 @@ def sparse_matching_with_var(ref: torch.Tensor, tar: torch.Tensor,
     return _SparseMatchingWithVar.apply(ref, tar, ref_mask, tar_mask, center,
                                         int(max_disp), int(window),
                                         bool(use_kernel))
+
+
+def _masks(ref_mask, tar_mask):
+    return ref_mask.float().contiguous(), tar_mask.float().contiguous()
+
+
+def sparse_matching(ref: torch.Tensor, tar: torch.Tensor,
+                    ref_mask: torch.Tensor, tar_mask: torch.Tensor,
+                    max_disp: int, use_kernel: bool = True) -> torch.Tensor:
+    """SpaMat (decnet_tpu/ops/matching.py::sparse_matching): the expected
+    disparity (B,H,W) f32, 0 where ref_mask == 0 and 1.0 where the band
+    holds no candidate; differentiable with respect to ref and tar.  It is
+    the fused pair's first output, whose backward is SpaMat's."""
+    ref_mask, tar_mask = _masks(ref_mask, tar_mask)
+    return sparse_matching_with_var(ref.contiguous(), tar.contiguous(),
+                                    ref_mask, tar_mask, max_disp,
+                                    use_kernel=use_kernel)[0]
+
+
+def spavar_backward_feats(ref: torch.Tensor, tar: torch.Tensor,
+                          ref_mask: torch.Tensor, tar_mask: torch.Tensor,
+                          disparity: torch.Tensor, out: torch.Tensor,
+                          sum_sim: torch.Tensor, max_cost: torch.Tensor,
+                          g: torch.Tensor, max_disp: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SpaVar's feature gradients (decnet_tpu/ops/matching.py::
+    _spavar_bwd_feats_xla): the dRef/dTar sums of `spamat_backward_plain`
+    with the query weight e * ((d - disparity)^2 - out) in place of
+    e * (d - out), as a loop over d in f32."""
+    B, C, H, W = ref.shape
+    dp = max_disp - 1
+    ref32 = ref.float()
+    tarp = F.pad(tar.float(), (dp, 0))
+    okp = F.pad((tar_mask != 0).float(), (dp, 0))
+    refm = ref_mask != 0
+    w = spamat.query_weight(g, ref_mask, sum_sim)
+    disparity, out = disparity.float(), out.float()
+    max_cost = max_cost.float()
+    gref = torch.zeros_like(ref32)
+    gtarp = torch.zeros_like(tarp)
+    for d in range(max_disp):
+        lo = dp - d
+        tar_d = tarp[..., lo:lo + W]
+        ok = (okp[..., lo:lo + W] > 0) & refm
+        s = (ref32 * tar_d).sum(dim=1)
+        e = torch.where(ok, torch.exp(s - max_cost), 0.0)
+        coef = (e * ((d - disparity) ** 2 - out) * w)[:, None]
+        gref += coef * tar_d
+        gtarp[..., lo:lo + W] += coef * ref32
+    gref = gref * refm[:, None]
+    gtar = gtarp[..., dp:] * (tar_mask != 0)[:, None]
+    return gref.to(ref.dtype), gtar.to(tar.dtype)
+
+
+class _SparseVar(torch.autograd.Function):
+    """SpaVar: out = (EPS + sum e (d - disparity)^2) / (EPS + se) where
+    ref_mask != 0, else 0, from the moments; the disparity's gradient
+    -2 g (sed - disparity se) / sum_sim; the features' gradients zero, or
+    `spavar_backward_feats` with full_grad."""
+
+    @staticmethod
+    def forward(ctx, ref, tar, ref_mask, tar_mask, disparity, max_disp,
+                full_grad, use_kernel):
+        moments = spamat.moments if use_kernel else spamat.moments_plain
+        m, se, sed, sed2 = moments(ref, tar, ref_mask, tar_mask, max_disp)
+        refm = ref_mask != 0
+        sum_sim = torch.where(refm, EPS + se, 0.0)
+        max_cost = torch.where(refm, m, 0.0)
+        disp = disparity.float()
+        svar = sed2 - 2.0 * disp * sed + disp * disp * se
+        out = torch.where(refm, (EPS + svar) / (EPS + se), 0.0)
+        ctx.save_for_backward(ref, tar, ref_mask, tar_mask, disparity, out,
+                              sum_sim, max_cost, sed, se)
+        ctx.cfg = (max_disp, full_grad)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (ref, tar, ref_mask, tar_mask, disparity, out, sum_sim, max_cost,
+         sed, se) = ctx.saved_tensors
+        max_disp, full_grad = ctx.cfg
+        refm = ref_mask != 0
+        inv_ss = torch.where(refm, 1.0 / torch.where(refm, sum_sim, 1.0),
+                             0.0)
+        acc = sed - disparity.float() * se
+        gdisp = (-2.0 * g * acc * inv_ss).to(disparity.dtype)
+        if full_grad:
+            gref, gtar = spavar_backward_feats(
+                ref, tar, ref_mask, tar_mask, disparity, out, sum_sim,
+                max_cost, g, max_disp)
+        else:
+            # the reference runs SpaVar under no_grad
+            gref, gtar = torch.zeros_like(ref), torch.zeros_like(tar)
+        return gref, gtar, None, None, gdisp, None, None, None
+
+
+def sparse_var(ref: torch.Tensor, tar: torch.Tensor, ref_mask: torch.Tensor,
+               tar_mask: torch.Tensor, disparity: torch.Tensor,
+               max_disp: int, full_grad: bool = False,
+               use_kernel: bool = True) -> torch.Tensor:
+    """SpaVar (decnet_tpu/ops/matching.py::sparse_var): the softmax-
+    weighted variance of the band around `disparity` (B,H,W), f32, 0 where
+    ref_mask == 0.  Differentiable with respect to `disparity`, and to the
+    features only with `full_grad` (their gradients are zero otherwise, as
+    torch.no_grad gives the reference's model).  The moments go through
+    the kernel wrapper with `use_kernel` (default)."""
+    ref_mask, tar_mask = _masks(ref_mask, tar_mask)
+    return _SparseVar.apply(ref.contiguous(), tar.contiguous(), ref_mask,
+                            tar_mask, disparity, int(max_disp),
+                            bool(full_grad), bool(use_kernel))

@@ -1,8 +1,11 @@
-"""Uniform disparity hypotheses and soft-argmin — the port of
-decnet_tpu/ops/regression.py:15-22 and :57-65."""
+"""Disparity hypotheses and soft-argmin — the port of
+decnet_tpu/ops/regression.py: the uniform set of stage 0, the adaptive set
+around a prior (reference submodule.py:398-411; no forward of the shipped
+model reaches it, the reference CLI exposes it) and the regression."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def uniform_disp_samples(max_disp: int, batch: int, height: int, width: int,
@@ -10,6 +13,26 @@ def uniform_disp_samples(max_disp: int, batch: int, height: int, width: int,
     """arange(max_disp) broadcast to (B,S,H,W), f32."""
     d = torch.arange(max_disp, dtype=torch.float32, device=device)
     return d[None, :, None, None].expand(batch, max_disp, height, width)
+
+
+def adaptive_disp_samples(disparity: torch.Tensor, max_disp: int,
+                          step: float, samp_num: int,
+                          kernel_size: int) -> torch.Tensor:
+    """`samp_num` hypotheses per pixel spaced evenly between the min and
+    max of the prior `disparity` (B,H,W) over a kernel_size window (its
+    outside ignored), the range first widened to samp_num * step about its
+    middle and cut to [0, max_disp]; (B,samp_num,H,W)."""
+    pad = (kernel_size - 1) // 2
+    x = disparity[:, None]
+    upper = F.max_pool2d(x, kernel_size, 1, pad)[:, 0]
+    lower = torch.abs(-F.max_pool2d(-x, kernel_size, 1, pad)[:, 0])
+    modified = torch.clamp(samp_num * step - (upper - lower), min=0) / 2
+    lower = torch.clamp(lower - modified, 0, max_disp)
+    upper = torch.clamp(upper + modified, 0, max_disp)
+    new_step = (upper - lower) / (samp_num - 1)
+    idx = torch.arange(samp_num, dtype=disparity.dtype,
+                       device=disparity.device)[None, :, None, None]
+    return lower[:, None] + idx * new_step[:, None]
 
 
 def disparity_regression(cost: torch.Tensor,

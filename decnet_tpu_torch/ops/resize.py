@@ -72,3 +72,9 @@ def downsample_gt(gt: torch.Tensor, down_size: int, mode: str) -> torch.Tensor:
         x = (tmp / down_size).reshape(B, h, down_size, w, down_size)
         return x.amin(dim=(2, 4))
     raise ValueError(f"unknown down_func_name {mode}")
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Non-overlapping k x k average pool of (B,C,H,W)."""
+    B, C, H, W = x.shape
+    return x.reshape(B, C, H // k, k, W // k, k).mean(dim=(3, 5))

@@ -2,7 +2,9 @@
 decnet_tpu/ops/warp.py:17-131.
 
 `warp_by_disparity` is the unclipped reference warp (the JAX model's warp
-off the TPU).  The model's Refinement warp goes through
+off the TPU); `warp_volume_by_disparity` applies it per hypothesis of a
+(B,S,H,W) set, and `grid_sample_normalized` samples at a grid in [-1, 1]
+as torch's grid_sample(align_corners=False, padding_mode="zeros") does.  The model's Refinement warp goes through
 `ops/kernels/warp.py`, which clips disparities like the TPU kernel does.
 `warp_volume_uniform` builds the stage-0 volume for d = 0..max_disp-1 as two
 matrix products with constant tap matrices."""
@@ -38,6 +40,18 @@ def grid_sample_bilinear(img: torch.Tensor, x: torch.Tensor,
             + tap(x0, y0 + 1, wx0 * wy1) + tap(x0 + 1, y0 + 1, wx1 * wy1))
 
 
+def grid_sample_normalized(img: torch.Tensor,
+                           grid: torch.Tensor) -> torch.Tensor:
+    """Sample `img` (B,C,H,W) at `grid` (B,...,2) of normalised (x, y) in
+    [-1, 1], unnormalised as ((g + 1) * size - 1) / 2
+    (align_corners=False); returns (B,C,...) in f32."""
+    H, W = img.shape[-2:]
+    grid = grid.float()
+    x = ((grid[..., 0] + 1.0) * W - 1.0) / 2.0
+    y = ((grid[..., 1] + 1.0) * H - 1.0) / 2.0
+    return grid_sample_bilinear(img, x, y)
+
+
 def warp_by_disparity(img: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     """Sample right-view `img` (B,C,H,W) at ``x - disp`` (disp (B,H,W)):
     position ``(x - d) * W/(W-1) - 0.5``, rows ``y * H/(H-1) - 0.5``, as the
@@ -52,6 +66,14 @@ def warp_by_disparity(img: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
     y = ys[None, :, None].expand(disp.shape)
     yy = y * (H / (H - 1.0)) - 0.5
     return grid_sample_bilinear(img, x, yy)
+
+
+def warp_volume_by_disparity(img: torch.Tensor,
+                             disp_samples: torch.Tensor) -> torch.Tensor:
+    """The right features warped by each hypothesis of `disp_samples`
+    (B,S,H,W): (B,C,S,H,W) in f32 (reference submodule.py:479-510)."""
+    return torch.stack([warp_by_disparity(img, disp_samples[:, s])
+                        for s in range(disp_samples.shape[1])], dim=2)
 
 
 def _affine_tap_matrix(n_out: int, n_in: int, pos) -> np.ndarray:

@@ -20,6 +20,10 @@ Layouts:
                 :33-37)
   BatchNorm     scale/bias -> weight/bias, batch_stats mean/var ->
                 running_mean/running_var
+  GroupNorm     scale/bias -> weight/bias (the `gn` norm)
+  conv_pre      the `cat` cost's 1x1x1 Conv, DHWIO -> OIDHW, no bias
+A model whose fine stages from skip_stage_id on have no heads takes a full
+checkpoint: the arrays of those heads are left out (`skipped_heads`).
 `flax_arrays_from_model` is the reverse: the model's state as the flat
 flax-named numpy arrays `params.npz` holds (`variables_from_model` as the
 nested tree, which `models/repack.py` transforms).
@@ -38,7 +42,8 @@ from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.models.decnet import DecNet
 
 _KEY_PART = re.compile(r"^\['([^']+)'\]$")
-_MODULES = {"Conv_0": "conv", "ConvTranspose_0": "conv", "BatchNorm_0": "bn"}
+_MODULES = {"Conv_0": "conv", "ConvTranspose_0": "conv", "BatchNorm_0": "bn",
+            "GroupNorm_0": "gn"}
 _LEAVES = {("params", "kernel"): "weight", ("params", "bias"): "bias",
            ("params", "scale"): "weight",
            ("batch_stats", "mean"): "running_mean",
@@ -47,6 +52,7 @@ _CONV_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
+_NORM_MODULES = {"bn": "BatchNorm_0", "gn": "GroupNorm_0"}
 
 
 def _parse_key(key: str) -> Tuple[str, ...]:
@@ -77,6 +83,9 @@ def _convert(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     if collection == "params" and len(names) == 1 \
             and names[0].startswith("match_logt_"):
         return names[0], arr
+    if collection == "params" and names[-2:] == ("conv_pre", "kernel"):
+        key = ".".join(names[:-1] + ("weight",))
+        return key, np.ascontiguousarray(arr.transpose(4, 3, 0, 1, 2))
     if len(names) < 2 or names[-2] not in _MODULES \
             or (collection, names[-1]) not in _LEAVES:
         raise KeyError(f"no port parameter for flax variable {path}")
@@ -152,6 +161,11 @@ def flax_arrays_from_state(model: torch.nn.Module,
             arrays[_flax_key(("params", names[0]))] = arr
             continue
         module, leaf = names[-2], names[-1]
+        if module == "conv_pre":
+            path = ("params",) + tuple(names[:-1]) + ("kernel",)
+            arrays[_flax_key(path)] = np.ascontiguousarray(
+                arr.transpose(2, 3, 4, 1, 0))
+            continue
         if module == "conv":
             is_t = ".".join(names[:-1]) in transposed
             collection, flax_leaf = _CONV_LEAVES[leaf]
@@ -163,9 +177,9 @@ def flax_arrays_from_state(model: torch.nn.Module,
                     arr = arr.transpose(2, 3, 1, 0)
                 else:
                     arr = arr.transpose(2, 3, 4, 1, 0)
-        elif module == "bn":
+        elif module in _NORM_MODULES:
             collection, flax_leaf = _BN_LEAVES[leaf]
-            flax_module = "BatchNorm_0"
+            flax_module = _NORM_MODULES[module]
         else:
             raise KeyError(f"no flax variable for port tensor {key}")
         path = (collection,) + tuple(names[:-2]) + (flax_module, flax_leaf)
@@ -194,9 +208,13 @@ def variables_from_model(model: torch.nn.Module) -> Dict:
 
 def load_flax_variables(model: torch.nn.Module,
                         variables: Union[str, Mapping]) -> int:
-    """Fill `model` from flax variables; strict both ways.  Returns the
-    number of arrays consumed."""
+    """Fill `model` from flax variables; strict both ways, but for the
+    arrays of the heads a DecNet skips (`DecNet.skipped_heads`), which are
+    left out.  Returns the number of arrays consumed."""
     sd = state_dict_from_flax(variables)
+    skipped = model.skipped_heads() if isinstance(model, DecNet) else ()
+    if skipped:
+        sd = {k: v for k, v in sd.items() if not k.startswith(skipped)}
     want = model.state_dict()
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))

@@ -137,10 +137,15 @@ def test_png_encoder_round_trip_and_refusals(tmp_path):
 
 
 def test_jpeg_refused_naming_the_roadmap_item(tmp_path):
+    """Baseline JPEG is read (tests/test_torch_jpeg.py); a progressive
+    file is refused, naming the roadmap's record of the refusals."""
     path = str(tmp_path / "a.jpg")
-    cv2.imwrite(path, natural(np.random.RandomState(0)))
+    img = natural(np.random.RandomState(0))
+    cv2.imwrite(path, img)
+    assert tio.read_image(path).shape == img.shape
+    cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md section 1, item 10"):
+                       match=r"progressive .*ROADMAP.md section 3"):
         tio.read_image(path)
 
 

@@ -1,7 +1,8 @@
 """The port's datasets (decnet_tpu_torch/data/datasets.py, synthetic.py)
 against decnet_tpu's on the same fixture files, written here by numpy, cv2
 and pickle as tests/test_train_and_data.py and tests/test_drivingstereo.py
-write theirs (DrivingStereo with PNG images: the port refuses JPEG).
+write theirs (DrivingStereo with PNG images here; its JPEG files in
+tests/test_torch_drivingstereo.py).
 
 Every sample must equal JAX's key by key, bit for bit: eval mode, and
 seeded train mode (crops, augmentations, KITTI's object-mask draw,

@@ -158,14 +158,13 @@ def test_faithful_checkpoint_through_bridge():
 def test_config_refuses_unported_paths():
     # learned detail, s2d with one or two packed stages and windowed
     # matching are ported (tests/test_torch_s2d_model.py,
-    # tests/test_torch_s2d_mid.py); the extractor packs no third level, and
-    # the rest is still refused
+    # tests/test_torch_s2d_mid.py); the extractor packs no third level.
+    # The skip builds (tests/test_torch_model_knobs.py holds it to JAX)
     ModelConfig(use_detail=True, s2d_fine=True, match_window=12)
     ModelConfig(s2d_fine=True, s2d_stages=2)
     with pytest.raises(ValueError):
         ModelConfig(s2d_fine=True, s2d_stages=3)
-    with pytest.raises(NotImplementedError):
-        ModelConfig(skip_stage_id=3)
+    assert ModelConfig(skip_stage_id=3).skip_stage_id == 3
     with pytest.raises(ValueError):
         ModelConfig(thold_mode="median")
     cfg = load_config(CKPT)

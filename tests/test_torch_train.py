@@ -425,9 +425,10 @@ def test_freeze_bn_step_keeps_statistics():
 
 def test_train_cli_refuses_unported_data(tmp_path):
     """The datasets' files are read (tests/test_torch_eval_cli.py trains
-    from them); what stays refused is JPEG images (ROADMAP.md section 1,
-    item 10), raised from the loader's worker in the step's stream, and an
-    on-device stream of a dataset that is not synthetic."""
+    from them, baseline JPEG included); what stays refused is progressive
+    JPEG (ROADMAP.md section 3), raised from the loader's worker in the
+    step's stream, and an on-device stream of a dataset that is not
+    synthetic."""
     import cv2
     from tests.test_torch_datasets import write_drivingstereo
     write_drivingstereo(str(tmp_path))
@@ -436,12 +437,13 @@ def test_train_cli_refuses_unported_data(tmp_path):
         for f in os.listdir(d):
             img = cv2.imread(str(d / f))
             os.remove(d / f)
-            cv2.imwrite(str(d / f.replace(".png", ".jpg")), img)
+            cv2.imwrite(str(d / f.replace(".png", ".jpg")), img,
+                        [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     run = tcli.prepare(["--dataset", "drivingstereo", "--root",
                         str(tmp_path), "--device", "cpu", "--ckpt_dir",
                         str(tmp_path / "run"), "--set",
                         "data.on_device=false"] + TINY)
-    with pytest.raises(NotImplementedError, match="section 1, item 10"):
+    with pytest.raises(NotImplementedError, match="progressive"):
         next(run.stream)
     with pytest.raises(ValueError, match="on_device"):
         tcli.prepare(["--dataset", "sceneflow", "--device", "cpu", "--set",
