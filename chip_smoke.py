@@ -60,6 +60,20 @@ group norm, 3, 2 and 1 stages; fresh weights, kernel path against plain
 path); runs the Middlebury-F forward with the bicubic skip of stage 3
 beside the unskipped one; and holds the standalone SpaMat and SpaVar ops
 against their plain versions, rejecting zeroed backward kernels.
+Data-parallel training across processes (decnet_tpu_torch/parallel/): the
+faithful recipe's global batch split over two gloo processes sharing the
+card against one process on all of it, and the dry run of
+__graft_entry__.py's config (`parallel/dryrun.py`) against its replay
+(after the s2d training); the train CLI under --multihost 1 in a
+one-process NCCL group against the same run without it, and in two gloo
+processes from the SceneFlow packs, rank 0 alone writing (after the
+packs' training).  The reports of the eval phase carry the JAX script's
+breakdowns (mask, candidate, oracle, soft-mask and lost-detail keys),
+printed beside the JAX reports', checked for soundness and held kernel
+path against plain path; the demo writes its intermediates grid beside
+unchanged submissions; and last a request is profiled by
+`utils/profiling.py` (its trace must name the kernels) and timed by its
+Timer against this script's clock.
 One line is printed per phase as it ends; the line before the last is a
 JSON object describing every kernel, the last line is the device record.
 Any failed check ends the run with a non-zero exit.
@@ -1084,8 +1098,72 @@ def eval_phase(torch, spamat, kwarp):
             fail(f"eval {name}: the sparse branch does not lower the final "
                  f"EPE (sparse_contribution_epe "
                  f"{rep['sparse_contribution_epe']:.4g})")
+        rep["breakdown_checks"] = breakdown_checks(torch, report_eval, name,
+                                                   variant, rep, source)
         out[name] = rep
     return out
+
+
+def breakdown_checks(torch, report_eval, name, variant, rep, source):
+    """The report's breakdowns (`cli.report_eval.breakdowns`) printed
+    beside the JAX report's same keys (another sample of the same stream,
+    so no band); every JAX key must be in the report, the fractions in
+    [0, 1], the oracle no worse than either branch; and on
+    BREAKDOWN_BATCHES batches the kernel path's report against the plain
+    path's, every EPE-like key within BREAKDOWN_EPE_TOL and every fraction
+    within BREAKDOWN_FRAC_TOL (null on both or neither)."""
+    with open(os.path.join(ROOT, source)) as f:
+        jax_rep = json.load(f)
+    missing = sorted(set(jax_rep) - set(rep))
+    if missing:
+        fail(f"eval {name}: the report lacks the JAX report's keys {missing}")
+    keys = [k for k in jax_rep if k.endswith("_epe") and k.startswith(
+        ("mask_", "cand_", "soft_", "sparse_win", "ld_"))] + ["mask_density"]
+    fmt = lambda v: "null" if v is None else f"{v:.4f}"
+    print(f"  {name} breakdowns, port / JAX ({source}): " + ", ".join(
+        f"{k}={fmt(rep[k])}/{fmt(jax_rep[k])}" for k in keys), flush=True)
+    fractions = [f"{k}_epe" for k in FRACTION_KEYS] + ["mask_density"]
+    for k in fractions:
+        if rep.get(k) is not None and not 0 <= rep[k] <= 1:
+            fail(f"eval {name}: {k} = {rep[k]} outside [0, 1]")
+    oracle = rep["mask_oracle_epe"]
+    if oracle is not None and not oracle <= min(
+            rep["mask_dense_epe"], rep["mask_sparse_epe"]) + 1e-9:
+        fail(f"eval {name}: mask_oracle_epe {oracle} above the dense or "
+             f"sparse branch's")
+    real = report_eval.load_model
+
+    def plain_model(*a, **k):
+        model = real(*a, **k)
+        model.use_kernels = False
+        return model
+    kw = dict(EVAL, batches=BREAKDOWN_BATCHES)
+    kern = report_eval.report(os.path.join(ROOT, "runs", name), **kw,
+                              variant=variant, device=DEV)
+    report_eval.load_model = plain_model
+    try:
+        plain = report_eval.report(os.path.join(ROOT, "runs", name), **kw,
+                                   variant=variant, device=DEV)
+    finally:
+        report_eval.load_model = real
+    worst = {"epe": 0.0, "fraction": 0.0}
+    for k in keys:
+        a, b = kern[k], plain[k]
+        if (a is None) != (b is None):
+            fail(f"eval {name}: {k} kernel path {a}, plain path {b}")
+        if a is None:
+            continue
+        kind = "fraction" if k in fractions else "epe"
+        worst[kind] = max(worst[kind], abs(a - b))
+    print(f"  {name} breakdowns on {BREAKDOWN_BATCHES} batches, kernel vs "
+          f"plain path: worst |delta| EPE-like {worst['epe']:.4g} px, "
+          f"fractions {worst['fraction']:.4g}", flush=True)
+    if not (worst["epe"] <= BREAKDOWN_EPE_TOL
+            and worst["fraction"] <= BREAKDOWN_FRAC_TOL):
+        fail(f"eval {name}: breakdowns kernel vs plain {worst} (tol "
+             f"{BREAKDOWN_EPE_TOL} px, {BREAKDOWN_FRAC_TOL})")
+    return {"kernel_vs_plain": worst,
+            "jax": {k: jax_rep[k] for k in keys}}
 
 
 @contextlib.contextmanager
@@ -1603,7 +1681,332 @@ def demo_cli_phase(torch, counters, sf_root, tmp):
             fail(f"demo_cli {source}: {len(seen)} predictions")
         out[source] = {"max_err_px": check_submissions(
             seen, f"demo_cli {source}"), "launches": launches}
+    # the intermediates grid: the same submissions, byte for byte
+    zero_launches(counters)
+    save = os.path.join(tmp, "demo_dump")
+    demo.main(["--root", scenes, "--save2where", save, "--resume", CKPT,
+               "--mask_source", "compute", "--dump_intermediates", "1",
+               "--device", DEV])
+    launches = check_forward_launches(counters, 2, "demo_cli dump")
+    panels = []
+    for i in range(2):
+        png = f"scene{i}.png"
+        with open(os.path.join(save, png), "rb") as f, \
+                open(os.path.join(tmp, "demo_compute", png), "rb") as g:
+            if f.read() != g.read():
+                fail(f"demo_cli dump: {png} differs from the run without "
+                     f"--dump_intermediates")
+        with open(os.path.join(save, f"scene{i}_check.json")) as f:
+            titles = json.load(f)["titles"]
+        grid = dio.read_png(os.path.join(save, f"scene{i}_check.png"))
+        rows = -(-len(titles) // 4)
+        if len(titles) != DEMO_PANELS or grid.shape[0] < rows * SERVE[0] \
+                or grid.shape[2] != 3:
+            fail(f"demo_cli dump: scene{i} grid {grid.shape} with "
+                 f"{len(titles)} panels, expected {DEMO_PANELS} in {rows} "
+                 f"rows of {SERVE[0]}")
+        panels.append(len(titles))
+    print(f"  demo --dump_intermediates 1: grids of {panels} panels "
+          f"({grid.shape[1]}x{grid.shape[0]}), submissions byte-equal",
+          flush=True)
+    out["dump"] = {"panels": panels, "grid_shape": list(grid.shape),
+                   "launches": launches}
     return out
+
+
+# Data-parallel training across processes (decnet_tpu_torch/parallel/).
+# The card is one H100, so the two processes share cuda:0 under gloo (NCCL
+# refuses two ranks on one card); the NCCL group is exercised with one
+# process.  The faithful recipe's global batch (B = 8 of 162x486, bf16)
+# is split 4 + 4 and held to this process's step on all of it with the
+# step checks' limits (loss 1e-3 relative, gradient cosine >= 0.999);
+# the dry run (parallel/dryrun.py, f32) with its own (loss 2e-5, grad norm
+# 2e-4).  The train CLI under --multihost 1 in a one-process NCCL group
+# must log the same losses as without it, 1e-6 relative.
+DIST_PROCS = 2
+DIST_TIMED_STEPS = 3      # after the first, checked, step
+MULTIHOST_LOSS_RTOL = 1e-6
+# the report's breakdowns on two batches, kernel path against plain path
+BREAKDOWN_BATCHES = 2
+BREAKDOWN_EPE_TOL, BREAKDOWN_FRAC_TOL = 0.05, 0.005
+FRACTION_KEYS = ("cand_avail_exact", "cand_avail", "sparse_win_frac",
+                 "ld_frac", "ld_mask_frac_of_ld", "ld_cand_frac_of_mask",
+                 "soft_mask_where_sparse_wins", "soft_mask_where_dense_wins")
+DEMO_PANELS = 22          # the JAX demo's grid at 4 stages
+TIMER_REL_TOL = 0.10      # utils.profiling.Timer against this script's clock
+
+
+def host_tensors(batch):
+    """A batch's tensors copied to the host (lists of masks too)."""
+    return {k: [m.cpu() for m in v] if isinstance(v, list) else v.cpu()
+            for k, v in batch.items()}
+
+
+def distributed_step_phase(torch, counters):
+    """One step of the faithful recipe on DIST_PROCS gloo processes on the
+    card, each on its half of the stream's first global batch from
+    ckpt_faithful's weights (`parallel/dryrun.py::data_parallel_step`,
+    then DIST_TIMED_STEPS timed steps), against this process's step on
+    the whole batch (the same steps, timed); each process's launches and
+    peak memory, and the host seconds in all-reduce calls.  Then the dry
+    run (`dryrun_multichip(2, "cuda")`, f32) with its own tolerances."""
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.parallel import dryrun
+    run = tcli.prepare(["--config", os.path.join(CKPT, "config.json"),
+                        "--dataset", "synthetic", "--init_from", CKPT,
+                        "--ckpt_dir", os.path.join(ROOT, "build",
+                                                   "decnet_tpu_torch",
+                                                   "smoke_ckpt_dist"),
+                        "--device", DEV])
+    cfg = run.cfg
+    shape = (cfg.train.batch_size, cfg.train.crop_h, cfg.train.crop_w,
+             cfg.model.max_disp, cfg.model.dtype)
+    if shape != TRAIN_SHAPE:
+        fail(f"distributed_step config {shape} is not the faithful run's")
+    batch = host_tensors(next(run.stream))
+    state = {k: v.detach().cpu() for k, v in
+             run.state.model.state_dict().items()}
+    del run
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = dryrun.data_parallel_step(DIST_PROCS, cfg, state, batch, DEV,
+                                      backend="gloo",
+                                      steps=1 + DIST_TIMED_STEPS)
+    spawn_s = time.perf_counter() - t
+    zero_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    one = dryrun.take_steps(cfg, state, dryrun.rows(batch, 0, 1, DEV), DEV,
+                            steps=1 + DIST_TIMED_STEPS)
+    import numpy as np
+    g2 = torch.from_numpy(ranks[0]["grads"]).double()
+    g1 = torch.from_numpy(one["grads"]).double()
+    cos = float(torch.nn.functional.cosine_similarity(g2, g1, dim=0))
+    rel = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    for r, res in enumerate(ranks):
+        print(f"  rank {r} ({res['device']}, {res['backend']}): loss "
+              f"{res['loss']:.6f} grad_norm {res['grad_norm']:.4f} steps "
+              + ", ".join(f"{x:.2f}" for x in res["step_ms"]) + " ms, "
+              f"all-reduce {res['all_reduce_calls']} calls "
+              f"{res['all_reduce_s'] * 1e3:.1f} ms over "
+              f"{DIST_TIMED_STEPS} steps, peak {res['peak_mem_mb']} MiB, "
+              f"launches {json.dumps(res['launches'])}", flush=True)
+        if any(n <= 0 for n in res["launches"].values()):
+            fail(f"distributed_step rank {r}: a kernel was not launched: "
+                 f"{res['launches']}")
+        if res["rank_max_abs_diff"] != 0:
+            fail(f"distributed_step rank {r}: state differs from rank 0's "
+                 f"by {res['rank_max_abs_diff']}")
+    print(f"  one process: loss {one['loss']:.6f} grad_norm "
+          f"{one['grad_norm']:.4f} steps "
+          + ", ".join(f"{x:.2f}" for x in one["step_ms"]) + " ms, peak "
+          f"{one['peak_mem_mb']} MiB; {DIST_PROCS} processes vs one: "
+          f"loss rel {rel:.3g}, gradient cosine {cos:.7f}", flush=True)
+    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_COS
+            and np.isfinite(ranks[0]["grads"]).all()):
+        fail(f"distributed_step: {DIST_PROCS}-process step vs one process: "
+             f"loss rel {rel:.3e} (tol {TRAIN_LOSS_RTOL}), gradient cosine "
+             f"{cos:.6f} (tol {TRAIN_GRAD_COS})")
+    t = time.perf_counter()
+    try:
+        dry = dryrun.dryrun_multichip(DIST_PROCS, DEV)
+    except AssertionError as e:
+        fail(f"distributed_step dry run: {e}")
+    dry_s = time.perf_counter() - t
+    timed = lambda ms: float(np.mean(ms[1:]))
+    return {"loss_rel": rel, "grad_cos": cos, "spawn_s": spawn_s,
+            "dryrun_s": dry_s,
+            "step_ms": [r["step_ms"] for r in ranks],
+            "one_process_step_ms": one["step_ms"],
+            "timed_step_ms": max(timed(r["step_ms"]) for r in ranks),
+            "one_process_timed_step_ms": timed(one["step_ms"]),
+            "all_reduce_ms_per_step": max(
+                r["all_reduce_s"] * 1e3 / DIST_TIMED_STEPS for r in ranks),
+            "all_reduce_calls_per_step":
+                ranks[0]["all_reduce_calls"] // DIST_TIMED_STEPS,
+            "peak_mem_mb": [r["peak_mem_mb"] for r in ranks],
+            "one_process_peak_mem_mb": one["peak_mem_mb"],
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]},
+            "rank_launches": [r["launches"] for r in ranks],
+            "losses": [r["loss"] for r in ranks], "one_loss": one["loss"],
+            "dryrun": {"loss": dry["ranks"][0]["loss"],
+                       "replay_loss": dry["replay"]["loss"],
+                       "grad_norm": dry["ranks"][0]["grad_norm"],
+                       "replay_grad_norm": dry["replay"]["grad_norm"],
+                       "launches": [r["launches"] for r in dry["ranks"]]}}
+
+
+def cli_train_worker(argv):
+    """`cli.train.main(argv)` in this process (a rank, when the process
+    group's variables are set): the lines it printed, the steps it saved
+    and its kernel launches."""
+    import io
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.parallel.dryrun import kernel_counters
+    from decnet_tpu_torch.train.checkpoint import CheckpointManager
+    counters = kernel_counters()
+    zero_launches(counters)
+    saves, real = [], CheckpointManager.save
+
+    def save(self, state, cfg):
+        saves.append(state.step)
+        return real(self, state, cfg)
+    CheckpointManager.save = save
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tcli.main(argv)
+    finally:
+        CheckpointManager.save = real
+    return {"log": buf.getvalue(), "saves": saves,
+            "launches": count_launches(counters)}
+
+
+def train_logs(text):
+    return [json.loads(l) for l in text.splitlines() if l.startswith("{")]
+
+
+def train_multihost_phase(torch, counters, sf_root):
+    """The train CLI, 2 steps of the faithful recipe (the on-device
+    stream, from ckpt_faithful) in this process, and again with
+    --multihost 1 in a one-process NCCL group (a new process with RANK=0,
+    WORLD_SIZE=1 and a local address): the same logged losses.  Then 2
+    steps from the SceneFlow packs in two gloo processes sharing the card
+    (global batch 8, 4 each): rank 0 alone logs and saves."""
+    from decnet_tpu_torch.parallel import dryrun
+    out_dir = os.path.join(ROOT, "build", "decnet_tpu_torch",
+                           "smoke_ckpt_multihost")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = ["--config", os.path.join(CKPT, "config.json"), "--init_from",
+            CKPT, "--steps", "2", "--set", "train.log_every=1", "--device",
+            DEV]
+    device = base + ["--dataset", "synthetic"]
+    t = time.perf_counter()
+    plain = cli_train_worker(device + ["--ckpt_dir",
+                                       os.path.join(out_dir, "plain")])
+    plain_s = time.perf_counter() - t
+    t = time.perf_counter()
+    nccl = dryrun.spawn(1, cli_train_worker,
+                        (device + ["--ckpt_dir", os.path.join(out_dir, "nccl"),
+                                   "--multihost", "1"],))[0]
+    nccl_s = time.perf_counter() - t
+    want, got = train_logs(plain["log"]), train_logs(nccl["log"])
+    if [l["step"] for l in got] != [1, 2] or len(want) != 2:
+        fail(f"train_multihost: logged steps {[l['step'] for l in got]} "
+             f"and {[l['step'] for l in want]}")
+    rels = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+            for g, w in zip(got, want)]
+    print("  nccl one process vs plain: losses "
+          + ", ".join(f"{g['loss']} / {w['loss']}" for g, w in zip(got, want))
+          + f"; launches {json.dumps(nccl['launches'])} / "
+          f"{json.dumps(plain['launches'])}", flush=True)
+    if not max(rels) <= MULTIHOST_LOSS_RTOL:
+        fail(f"train_multihost: --multihost 1 (NCCL, one process) logged "
+             f"losses {rels} relative from the plain run's")
+    if "mesh {'data': 1" not in nccl["log"]:
+        fail("train_multihost: the NCCL run did not report its mesh")
+    gloo_dir = os.path.join(out_dir, "gloo")
+    t = time.perf_counter()
+    ranks = dryrun.spawn(2, cli_train_worker, (
+        base + ["--dataset", "sceneflow", "--root", sf_root,
+                "--train_split", "test", "--set", "data.on_device=false",
+                "--set", "data.num_workers=2", "--multihost", "1",
+                "--dist_backend", "gloo", "--ckpt_dir", gloo_dir],))
+    gloo_s = time.perf_counter() - t
+    logs = train_logs(ranks[0]["log"])
+    print(f"  gloo 2 processes from the packs: rank 0 logged "
+          f"{[(l['step'], l['loss']) for l in logs]}, saved "
+          f"{ranks[0]['saves']}; rank 1 printed {len(ranks[1]['log'])} "
+          f"characters, saved {ranks[1]['saves']}; launches "
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    if ([l["step"] for l in logs] != [1, 2]
+            or not all(math.isfinite(l["loss"]) for l in logs)
+            or "mesh {'data': 2" not in ranks[0]["log"]):
+        fail(f"train_multihost gloo: rank 0 logged {ranks[0]['log'][-500:]}")
+    if ranks[0]["saves"] != [2] or ranks[1]["saves"] or ranks[1]["log"]:
+        fail(f"train_multihost gloo: saves {[r['saves'] for r in ranks]}, "
+             f"rank 1 printed {ranks[1]['log'][-300:]!r}")
+    if not os.path.isfile(os.path.join(gloo_dir, "2", "params.npz")):
+        fail("train_multihost gloo: no checkpoint at step 2")
+    for r in ranks:
+        if any(n != 6 for n in r["launches"].values()):
+            fail(f"train_multihost gloo: launches {r['launches']} in 2 "
+                 f"steps, expected 6 each")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {k: nccl["launches"][k] + sum(r["launches"][k] for r in ranks)
+                for k in counters}
+    # step 2's rate as the CLI logs it (step 1's holds the warm-up)
+    rate = lambda lines: lines[-1]["steps_per_sec"]
+    return {"loss_rel": rels, "plain_s": plain_s, "nccl_s": nccl_s,
+            "gloo_s": gloo_s, "plain_steps_per_sec": rate(want),
+            "nccl_steps_per_sec": rate(got),
+            "gloo_steps_per_sec": rate(logs),
+            "nccl_losses": [g["loss"] for g in got],
+            "plain_losses": [w["loss"] for w in want],
+            "gloo_losses": [l["loss"] for l in logs],
+            "launches": launches}
+
+
+def profiling_phase(torch, gen):
+    """One faithful request (host masks, then predict) under
+    `utils/profiling.py::device_trace` with `annotate`: the trace must
+    name the moments and warp kernels and the range; then `Timer.timed`
+    of a request against this script's own synchronised clock around the
+    same call."""
+    from decnet_tpu_torch.cli.demo import host_masks, predict
+    from decnet_tpu_torch.cli.profile import _device_us
+    from decnet_tpu_torch.data.synthetic import synthetic_pair
+    from decnet_tpu_torch.utils.profiling import (TRACE_FILE, Timer,
+                                                  annotate, device_trace)
+    from decnet_tpu_torch.weights import load_checkpoint
+    model = load_checkpoint(CKPT, device=DEV)
+    H, W, D = SERVE
+    left, right, _, _ = synthetic_pair(H, W, gen, DEV)
+
+    def request():
+        return predict(model, left, right, *host_masks(left, right,
+                                                       model.cfg), D)
+    request()
+    torch.cuda.synchronize()
+    logdir = os.path.join(ROOT, "build", "decnet_tpu_torch", "smoke_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    t = time.perf_counter()
+    with device_trace(logdir) as prof:
+        with annotate("faithful_request"):
+            request()
+    traced_ms = (time.perf_counter() - t) * 1e3
+    device_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+    with open(os.path.join(logdir, TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(n for n in names if k in n)[:2]
+             for k in ("moments_kernel", "warp_kernel", "faithful_request")}
+    print(f"  trace {os.path.join(logdir, TRACE_FILE)}: {len(names)} names; "
+          f"{json.dumps(found)}; wall {traced_ms:.2f} ms, device busy "
+          f"{device_ms:.3f} ms", flush=True)
+    if not all(found.values()):
+        fail(f"profiling: the trace lacks "
+             f"{[k for k, v in found.items() if not v]}")
+    timer, own = Timer(), []
+    for _ in range(3):
+        t = time.perf_counter()
+        timer.timed("request", request)
+        torch.cuda.synchronize()
+        own.append(time.perf_counter() - t)
+    rel = max(abs(a - b) / b for a, b in zip(timer.times["request"], own))
+    print("  Timer " + ", ".join(f"{x * 1e3:.3f}" for x in
+                                  timer.times["request"])
+          + " ms against " + ", ".join(f"{x * 1e3:.3f}" for x in own)
+          + f" ms: worst {rel:.4f} relative", flush=True)
+    if not rel <= TIMER_REL_TOL:
+        fail(f"profiling: Timer {timer.times['request']} s against the "
+             f"clock's {own} s ({rel:.3f} relative)")
+    shutil.rmtree(logdir, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"traced_wall_ms": traced_ms, "device_busy_ms": device_ms,
+            "timer_ms": [x * 1e3 for x in timer.times["request"]],
+            "clock_ms": [x * 1e3 for x in own], "timer_rel": rel,
+            "trace_names": found}
 
 
 # the bench's batch (cli/bench.py: B = 4 of 540x972, bf16) and the
@@ -2519,6 +2922,28 @@ def main():
           resume_bit_exact=ts["resume_bit_exact"],
           params_npz_arrays=ts["params_npz_arrays"])
 
+    # -- 6c. one global batch over two processes on the card (gloo), and
+    # the dry run
+    t0 = time.perf_counter()
+    dist_step = distributed_step_phase(torch, counters)
+    torch.cuda.empty_cache()
+    ds_ = dist_step
+    phase("distributed_step", t0, processes=DIST_PROCS, backend="gloo",
+          batch=f"{b}={b // DIST_PROCS}x{DIST_PROCS}", size=f"{h}x{w}",
+          dtype=dt, loss_rel=f"{ds_['loss_rel']:.3g}",
+          grad_cos=f"{ds_['grad_cos']:.7f}",
+          step_ms=f"{ds_['timed_step_ms']:.2f}",
+          one_process_step_ms=f"{ds_['one_process_timed_step_ms']:.2f}",
+          all_reduce_ms_per_step=f"{ds_['all_reduce_ms_per_step']:.2f}",
+          all_reduce_calls_per_step=ds_["all_reduce_calls_per_step"],
+          peak_mem_mb=",".join(f"{x:.1f}" for x in ds_["peak_mem_mb"]),
+          one_process_peak_mem_mb=f"{ds_['one_process_peak_mem_mb']:.1f}",
+          launches=json.dumps(ds_["rank_launches"]),
+          spawn_s=f"{ds_['spawn_s']:.1f}",
+          dryrun_loss="{loss:.6f}/{replay_loss:.6f}".format(**ds_["dryrun"]),
+          dryrun_grad_norm="{grad_norm:.4f}/{replay_grad_norm:.4f}".format(
+              **ds_["dryrun"]), dryrun_s=f"{ds_['dryrun_s']:.1f}")
+
     # -- 7. the s2d model with learned masks and windowed matching, served
     t0 = time.perf_counter()
     s2d = serve_s2d_phase(torch, spamat, kwarp, gen)
@@ -2569,6 +2994,9 @@ def main():
     phase("eval", t0, **{f"{k}_stage3_epe": f"{r['stage3_epe']:.5g}"
                          for k, r in evals.items()},
           **{f"{k}_band": f"{r['anchor_stage3_epe']}+-{r['band']:.4g}"
+             for k, r in evals.items()},
+          **{f"{k}_breakdowns_kernel_vs_plain": "{epe:.3g}/{fraction:.3g}"
+             .format(**r["breakdown_checks"]["kernel_vs_plain"])
              for k, r in evals.items()},
           faithful_sparse_contribution_epe=f"{evals['ckpt_faithful']['sparse_contribution_epe']:.4g}")
 
@@ -2642,6 +3070,22 @@ def main():
               **{f"{k}_2_steps_s": f"{v['seconds']:.2f}"
                  for k, v in dst["others"].items()})
         t0 = time.perf_counter()
+        multihost = train_multihost_phase(torch, counters,
+                                          roots["sceneflow_960"])
+        torch.cuda.empty_cache()
+        phase("train_multihost", t0, steps=2,
+              nccl_one_process_loss_rel=",".join(
+                  f"{x:.3g}" for x in multihost["loss_rel"]),
+              nccl_losses=",".join(map(str, multihost["nccl_losses"])),
+              gloo_two_process_losses=",".join(
+                  map(str, multihost["gloo_losses"])),
+              steps_per_sec="{plain_steps_per_sec}/{nccl_steps_per_sec}/"
+              "{gloo_steps_per_sec}".format(**multihost),
+              plain_s=f"{multihost['plain_s']:.1f}",
+              nccl_s=f"{multihost['nccl_s']:.1f}",
+              gloo_s=f"{multihost['gloo_s']:.1f}",
+              launches=json.dumps(multihost["launches"]))
+        t0 = time.perf_counter()
         ref_import = reference_import_phase(torch, gen, tmp)
         phase("reference_import", t0, arrays=ref_import["arrays"],
               bit_equal=ref_import["bit_equal"])
@@ -2649,7 +3093,10 @@ def main():
         demo_cli = demo_cli_phase(torch, counters, roots["sceneflow_960"],
                                   tmp)
         phase("demo_cli", t0, **{f"{k}_max_err_px": f"{v['max_err_px']:.4g}"
-                                 for k, v in demo_cli.items()})
+                                 for k, v in demo_cli.items() if k != "dump"},
+              dump_panels=",".join(map(str, demo_cli["dump"]["panels"])),
+              dump_grid="x".join(map(str, demo_cli["dump"]["grid_shape"])),
+              dump_submissions_byte_equal=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2725,6 +3172,16 @@ def main():
               f"{k}:{'rejected' if v['rejected'] else 'passed'}"
               for k, v in standalone["planted_faults"].items()))
 
+    # -- 15. a request profiled by utils/profiling.py, and its Timer
+    t0 = time.perf_counter()
+    prof = profiling_phase(torch, gen)
+    phase("profiling", t0, traced_wall_ms=f"{prof['traced_wall_ms']:.2f}",
+          device_busy_ms=f"{prof['device_busy_ms']:.3f}",
+          timer_ms=",".join(f"{x:.3f}" for x in prof["timer_ms"]),
+          clock_ms=",".join(f"{x:.3f}" for x in prof["clock_ms"]),
+          timer_rel=f"{prof['timer_rel']:.4f}",
+          trace_names=json.dumps(prof["trace_names"]))
+
     # -- 9. the kernels line: per kernel, the launches of each path's run;
     # times summed over the three fine-stage shapes of its main path
     # (serving, one 540x972 request, for the forward kernels; a training
@@ -2767,6 +3224,10 @@ def main():
         by_path["model_knobs"] = sum(
             v["request_launches"][name] + v["step_launches"][name]
             for v in knobs.values())
+        by_path["distributed_step"] = dist_step["launches"][name]
+        by_path["train_multihost"] = multihost["launches"][name]
+        if name in launches:
+            by_path["demo_dump"] = demo_cli["dump"]["launches"][name]
         k = {"name": name, "route": "cuda", "source": sources[name][0],
              "replaces": sources[name][1],
              "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2861,6 +3322,8 @@ def main():
                        "drivingstereo_eval": dse_ds, "model_knobs": knobs,
                        "middlebury_full_skip": skip,
                        "standalone_matching": standalone,
+                       "distributed_step": dist_step,
+                       "train_multihost": multihost, "profiling": prof,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,
                        "epe_px": epes, "plain_mean_abs_delta_px": mean_delta,

@@ -12,13 +12,18 @@ disparity * 256) into --save2where.  PNG files are read and written by
 (`cli/common.py`); without --resume the model is a fresh initialisation,
 as the JAX demo's is.  --exec_s2d 1 serves a faithful checkpoint through
 its exact s2d twin (`models/repack.py::s2d_exec`: the same outputs up to
-summation order).  --dump_intermediates is not ported (ROADMAP.md
-section 1, item 11).
+summation order).  --dump_intermediates 1 also writes `<scene>_check.png`,
+the JAX demo's grid of every stage's intermediates (`utils/viz.py::
+show_imgs`: every stage's prediction, then the dense, sparse, fusion, soft
+mask and variance maps of each fine stage, then the masks used in gray;
+4 columns, at the padded size), with its panels' titles in
+`<scene>_check.json`; the submission PNG is the same with or without it.
 
 Usage:
   python -m decnet_tpu_torch.cli.demo --root InputData/Sceneflow \
       --save2where out/ --resume runs/ckpt_faithful [--exec_s2d 1] \
-      [--max_disp 216] [--mask_source compute|wavelet] [--device cuda]
+      [--max_disp 216] [--mask_source compute|wavelet] [--device cuda] \
+      [--dump_intermediates 1]
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from decnet_tpu_torch.data import io as dio
 from decnet_tpu_torch.data import masks as dmasks
 from decnet_tpu_torch.models.decnet import DecNet
 from decnet_tpu_torch.models.repack import s2d_exec_model
+from decnet_tpu_torch.utils.viz import show_imgs
 
 MASK_THOLD = 0.3      # the demo's precomputed-mask threshold
 PAD_MULTIPLE = 27
@@ -91,16 +97,31 @@ def request_masks(left: torch.Tensor, right: torch.Tensor, cfg: ModelConfig,
 def predict(model: DecNet, left: torch.Tensor, right: torch.Tensor,
             lmasks: Optional[Sequence[torch.Tensor]],
             rmasks: Optional[Sequence[torch.Tensor]],
-            max_disp: int) -> torch.Tensor:
+            max_disp: int, full: bool = False):
     """Disparity (B,H,W) f32 for a stereo pair (B,3,H,W) in [0,1] on the
     model's device and its padded images' detail masks (`request_masks`):
-    pad to x27, normalise, forward, crop."""
+    pad to x27, normalise, forward, crop.  With `full`, (disparity, the
+    forward's output dict at the padded size)."""
     h, w = left.shape[-2:]
     lp = dio.pad_to_multiple(left.float(), PAD_MULTIPLE)
     rp = dio.pad_to_multiple(right.float(), PAD_MULTIPLE)
     out = model(dio.normalize_image(lp), dio.normalize_image(rp),
                 lmasks, rmasks, max_disp=max_disp)
-    return out["preds"][-1][:, -h:, -w:]
+    pred = out["preds"][-1][:, -h:, -w:]
+    return (pred, out) if full else pred
+
+
+def intermediate_panels(out) -> List[tuple]:
+    """The JAX demo's grid panels of sample 0 of a forward's outputs, in
+    its order: (map, title[, cmap])."""
+    first = lambda x: x[0].float().cpu().numpy()
+    panels = [(first(p), f"pred s{i}") for i, p in enumerate(out["preds"])]
+    panels += [(first(x), f"{nm} s{i + 1}")
+               for nm in ("dense", "sparse", "fusion", "soft_mask", "var")
+               for i, x in enumerate(out[nm])]
+    panels += [(first(m), f"mask s{i + 1}", "gray")
+               for i, m in enumerate(out["masks_used"])]
+    return panels
 
 
 def main(argv=None):
@@ -115,6 +136,9 @@ def main(argv=None):
     p.add_argument("--exec_s2d", type=int, default=0,
                    help="run a faithful checkpoint through the exact "
                    "space-to-depth repack: same outputs, s2d execution")
+    p.add_argument("--dump_intermediates", type=int, default=0,
+                   help="also write <scene>_check.png, a grid of every "
+                   "stage's outputs (titles in <scene>_check.json)")
     args = p.parse_args(argv)
 
     cfg = apply_checkpoint_sidecar(build_config(args), args)
@@ -139,9 +163,17 @@ def main(argv=None):
         lmasks, rmasks = request_masks(left, right, model.cfg,
                                        args.mask_thold, args.mask_source)
         t0 = time.perf_counter()
-        pred = predict(model, left, right, lmasks, rmasks, int(ndisp))
+        if args.dump_intermediates:
+            pred, out = predict(model, left, right, lmasks, rmasks,
+                                int(ndisp), full=True)
+        else:
+            pred = predict(model, left, right, lmasks, rmasks, int(ndisp))
         pred = pred[0].cpu().numpy()     # waits for the device
         dt = time.perf_counter() - t0
+        if args.dump_intermediates:
+            show_imgs(intermediate_panels(out), ncols=4,
+                      save_path=os.path.join(args.save2where,
+                                             name + "_check.png"))
         dio.write_submission_png(os.path.join(args.save2where, name + ".png"),
                                  pred)
         print(f"{name}: {left.shape[2]}x{left.shape[3]} ndisp={ndisp} "

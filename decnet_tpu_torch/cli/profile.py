@@ -10,10 +10,13 @@ warm-up step and then three steps (its checkpoint directory, under the
 build directory, is never written, so nothing is resumed); `--set`
 overrides go to the train CLI, e.g. `--set train.freeze_bn=1 --set
 train.packed_exec=1` for the packed frozen-BN step.
-The measured part runs under torch.profiler; printed are the wall time per
-request (step), the device time of the top kernels, the device's busy
-share of the window, and one JSON summary line.  The device-time sums come
-from CUPTI, as `key_averages()` reports them.
+The measured part runs under torch.profiler (`utils/profiling.py::
+device_trace`, each request or step a named range by `annotate`; the
+Chrome trace goes to the build directory's `profile_trace/trace.json`);
+printed are the wall time per request (step), the device time of the top
+kernels, the device's busy share of the window, and one JSON summary
+line.  The device-time sums come from CUPTI, as `key_averages()` reports
+them.
 
 Usage:
   python -m decnet_tpu_torch.cli.profile [--mode serve|train]
@@ -33,6 +36,7 @@ from decnet_tpu_torch.cli.demo import predict, request_masks
 from decnet_tpu_torch.data.synthetic import synthetic_pair
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.ops.kernels.build import BUILD_DIR
+from decnet_tpu_torch.utils.profiling import annotate, device_trace
 from decnet_tpu_torch.weights import load_checkpoint
 
 SIZE = (540, 972, 216)      # SceneFlow's 540x960 padded to x27, max_disp
@@ -70,8 +74,9 @@ def _serve_work(resume, dev, overrides=()):
         serve(reqs[0][0], reqs[0][1])
 
     def work():
-        for left, right, _, _ in reqs[1:]:
-            serve(left, right)
+        for i, (left, right, _, _) in enumerate(reqs[1:]):
+            with annotate(f"request {i}"):
+                serve(left, right)
     return warm, work, f"requests {H}x{W} max_disp {D}"
 
 
@@ -89,8 +94,9 @@ def _train_work(resume, dev, overrides=()):
         run.step(batches[0])
 
     def work():
-        for b in batches[1:]:
-            run.step(b)
+        for i, b in enumerate(batches[1:]):
+            with annotate(f"step {i}"):
+                run.step(b)
     return warm, work, (f"train steps B={t.batch_size} {t.crop_h}x{t.crop_w}"
                         f" max_disp {run.cfg.model.max_disp}")
 
@@ -112,9 +118,7 @@ def main(argv=None):
     warm()
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_trace(str(BUILD_DIR / "profile_trace")) as prof:
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()

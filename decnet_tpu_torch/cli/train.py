@@ -1,4 +1,4 @@
-"""Training CLI — the port of decnet_tpu/cli/train.py, single process.
+"""Training CLI — the port of decnet_tpu/cli/train.py.
 
 Any committed checkpoint's recipe trains: the faithful model, learned
 detail heads (`use_detail`, whose mask loss adds `loss.alpha` times its
@@ -34,7 +34,27 @@ Every `train.ckpt_every` steps and at the end it saves a resumable
 checkpoint, `<ckpt_dir>/<step>/` (the newest `train.keep_ckpts` kept), and
 refreshes `<ckpt_dir>/params.npz` and `config.json`.
 
+Across processes (`--multihost 1`, or whenever the torchrun variables
+RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT are set, as the JAX CLI
+joins its cluster when JAX_COORDINATOR_ADDRESS is): one process per card
+(`parallel/mesh.py::init_distributed`: nccl, or `--dist_backend gloo`,
+which also lets two processes share one card).  `train.batch_size` is the
+global batch; each process loads `batch_size // world` rows of it
+(`DataLoader(shard=(rank, world))`), the batch statistics, losses, eval
+metrics and gradients are those of the global batch, and every process
+holds the same state (rank 0's, broadcast after a restore or warm start).
+Only rank 0 logs and writes checkpoints.  The on-device stream is
+single-process and is refused there, as in JAX.
+
+`train.max_rss_gb` > 0 is the JAX CLI's host memory guard: when a
+process's resident set (/proc/self/status) exceeds it at a log step, rank
+0 saves a checkpoint and every process exits with code 75, so that a
+supervisor restarts and resumes the run.
+
 Usage:
+  torchrun --nproc_per_node G -m decnet_tpu_torch.cli.train --multihost 1 \
+      --config runs/ckpt_faithful/config.json --dataset sceneflow \
+      --root /data/sf --set data.on_device=false --ckpt_dir out/
   python -m decnet_tpu_torch.cli.train --config runs/ckpt_faithful/config.json \
       --dataset synthetic --ckpt_dir out/ --steps 100 \
       [--init_from runs/ckpt_faithful] [--set train.batch_size=4 ...] \
@@ -59,7 +79,9 @@ initialisation, and the optimizer and step start fresh.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -79,6 +101,7 @@ from decnet_tpu_torch.data.loader import (HOST_KEYS, DataLoader,
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.models.decnet import DecNet
 from decnet_tpu_torch.models.repack import repack_linear
+from decnet_tpu_torch.parallel import mesh
 from decnet_tpu_torch.train.checkpoint import PARAMS_FILE, CheckpointManager
 from decnet_tpu_torch.train.step import (TrainState, check_loss_type,
                                          create_train_state, eval_step,
@@ -86,6 +109,7 @@ from decnet_tpu_torch.train.step import (TrainState, check_loss_type,
 from decnet_tpu_torch.weights import warm_start
 
 EVAL_KEYS = ("epe", "d1", "epe_up0", "d1_up0")
+RSS_EXIT_CODE = 75          # the JAX CLI's: checkpointed, restart me
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -116,6 +140,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    "with data.on_device (the validation stream)")
     p.add_argument("--eval_every", type=int, default=2000)
     p.add_argument("--eval_batches", type=int, default=16)
+    p.add_argument("--multihost", type=int, default=0,
+                   help="join the process group of the torchrun variables "
+                   "(also done whenever they are set)")
+    p.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend: nccl on the card, "
+                   "gloo on the CPU by default; gloo lets processes share "
+                   "a card")
     return p.parse_args(argv)
 
 
@@ -176,7 +207,8 @@ def host_batches(loader: DataLoader, device) -> Iterator[Dict]:
 @dataclasses.dataclass
 class Run:
     """What `prepare` builds: the config, the train state, the batch
-    stream, the fixed eval batches and the checkpoint manager."""
+    stream, the fixed eval batches and the checkpoint manager.  Under a
+    process group the stream and eval batches are this process's shard."""
     cfg: Config
     state: TrainState
     stream: Iterator[Dict]
@@ -210,24 +242,39 @@ class Run:
 def prepare(argv=None) -> Run:
     args = parse_args(argv)
     cfg = build_config(args)
-    dev = resolve_device(args.device)
+    if args.multihost or mesh.torchrun_env():
+        dev = mesh.init_distributed(args.device, args.dist_backend)
+    else:
+        dev = resolve_device(args.device)
+    mesh.make_mesh(cfg.mesh)
+    # train.batch_size is the global batch; this process loads its share
+    shard, local_bs = mesh.shard(cfg.train.batch_size)
+    if mesh.world_size() == 1:
+        shard = None
+    elif cfg.data.on_device:
+        raise ValueError("on_device data stream is single-process")
     # the fresh initialisation is drawn from train.seed, as JAX's is
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
         model = DecNet(cfg.model)
     state = create_train_state(model.to(dev), cfg)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep=cfg.train.keep_ckpts)
-    if ckpt.latest_step() is not None:
-        ckpt.restore(state)
-        print(f"Restored checkpoint step {state.step} from "
-              f"{cfg.train.ckpt_dir}", flush=True)
-    elif os.path.isfile(os.path.join(cfg.train.ckpt_dir, PARAMS_FILE)):
-        # a params snapshot alone: its weights at its step, the optimizer
-        # (and so its schedule) fresh, as JAX's init_model_and_state
-        state.step = state.schedule_from = load_snapshot(
-            state.model, os.path.join(cfg.train.ckpt_dir, PARAMS_FILE))
-    if args.init_from and state.step == 0:
-        warm_start(state.model, os.path.join(args.init_from, PARAMS_FILE))
+    # the restore and warm-start messages come from rank 0 alone
+    quiet = (contextlib.nullcontext() if mesh.is_main()
+             else contextlib.redirect_stdout(io.StringIO()))
+    with quiet:
+        if ckpt.latest_step() is not None:
+            ckpt.restore(state)
+            print(f"Restored checkpoint step {state.step} from "
+                  f"{cfg.train.ckpt_dir}", flush=True)
+        elif os.path.isfile(os.path.join(cfg.train.ckpt_dir, PARAMS_FILE)):
+            # a params snapshot alone: its weights at its step, the optimizer
+            # (and so its schedule) fresh, as JAX's init_model_and_state
+            state.step = state.schedule_from = load_snapshot(
+                state.model, os.path.join(cfg.train.ckpt_dir, PARAMS_FILE))
+        if args.init_from and state.step == 0:
+            warm_start(state.model, os.path.join(args.init_from, PARAMS_FILE))
+    mesh.broadcast_state(state.model)
     # the repack reads the model's structure only; every packed step
     # gathers the faithful tensors anew
     packed = (repack_linear(state.model, stages=2)
@@ -256,18 +303,18 @@ def prepare(argv=None) -> Run:
                          is_training=True, seed=cfg.train.seed, **ds_kw,
                          **length)
         stream = host_batches(DataLoader(
-            ds, batch_size=cfg.train.batch_size, shuffle=True,
+            ds, batch_size=local_bs, shuffle=True,
             num_workers=cfg.data.num_workers, drop_last=True,
-            seed=cfg.train.seed), dev)
+            seed=cfg.train.seed, shard=shard), dev)
         eval_batches = None
         if args.eval_split:
             # the first eval_batches of one epoch, sent to the device once
             eval_ds = get_dataset(args.dataset, args.root,
                                   split=args.eval_split, is_training=False,
                                   **ds_kw)
-            eval_loader = DataLoader(eval_ds, batch_size=cfg.train.batch_size,
+            eval_loader = DataLoader(eval_ds, batch_size=local_bs,
                                      num_workers=cfg.data.num_workers,
-                                     drop_last=True)
+                                     drop_last=True, shard=shard)
             eval_batches = []
             for b in itertools.islice(eval_loader, args.eval_batches):
                 b = to_device(b, dev)
@@ -278,12 +325,24 @@ def prepare(argv=None) -> Run:
                packed)
 
 
+def rss_gb() -> float:
+    """This process's resident set in GB (10^9 bytes), from
+    /proc/self/status (VmRSS, in kB)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1e3 / 1e9
+    raise RuntimeError("/proc/self/status has no VmRSS line")
+
+
 def run(r: Run) -> None:
     cfg, t = r.cfg, r.cfg.train
-    print(f"training from step {r.state.step} to {t.total_steps} "
-          f"(device {next(r.state.model.parameters()).device}, "
-          f"data={'on-device' if cfg.data.on_device else cfg.data.dataset})",
-          flush=True)
+    rank0 = mesh.is_main()
+    say = (lambda msg: print(msg, flush=True)) if rank0 else (lambda msg: None)
+    dev = next(r.state.model.parameters()).device
+    say(f"training from step {r.state.step} to {t.total_steps} "
+        f"(device {dev}, mesh {mesh.make_mesh(cfg.mesh).shape}, "
+        f"data={'on-device' if cfg.data.on_device else cfg.data.dataset})")
     t_log = time.perf_counter()
     stream, waited = Waited(r.stream), 0.0
     for batch in itertools.islice(stream,
@@ -295,31 +354,47 @@ def run(r: Run) -> None:
             dt = time.perf_counter() - t_log
             t_log = time.perf_counter()
             waited, wait_s = stream.waited, stream.waited - waited
-            print(json.dumps(
+            say(json.dumps(
                 {"step": step, "loss": round(logs["total"], 5),
                  "grad_norm": round(logs["grad_norm"], 4),
                  "steps_per_sec": round(t.log_every / dt, 3),
                  "loader_wait_s": round(wait_s, 4),
                  **{k: round(v, 5) for k, v in logs.items()
-                    if k not in ("total", "grad_norm")}}), flush=True)
+                    if k not in ("total", "grad_norm")}}))
+            if t.max_rss_gb > 0:
+                # every process leaves together when any is over the limit
+                gb = rss_gb()
+                over = mesh.global_sum(torch.tensor(
+                    float(gb > t.max_rss_gb), device=dev))
+                if float(over) > 0:
+                    if rank0:
+                        r.ckpt.save(r.state, cfg)
+                    print(f"RSS {gb:.1f} GB (limit {t.max_rss_gb} GB in "
+                          f"{int(over)} of {mesh.world_size()} processes); "
+                          f"checkpointed @ {step}, exiting "
+                          f"{RSS_EXIT_CODE} for restart", flush=True)
+                    raise SystemExit(RSS_EXIT_CODE)
         if r.eval_batches is not None and step % r.eval_every == 0:
             m = r.evaluate()
-            print(json.dumps({"step": step,
-                              "eval_epe": round(m["epe"], 4),
-                              "eval_d1": round(m["d1"], 3),
-                              "eval_epe_up0": round(m["epe_up0"], 4),
-                              "eval_d1_up0": round(m["d1_up0"], 3)}),
-                  flush=True)
-        if step % t.ckpt_every == 0:
+            say(json.dumps({"step": step,
+                            "eval_epe": round(m["epe"], 4),
+                            "eval_d1": round(m["d1"], 3),
+                            "eval_epe_up0": round(m["epe_up0"], 4),
+                            "eval_d1_up0": round(m["d1_up0"], 3)}))
+        if step % t.ckpt_every == 0 and rank0:
             r.ckpt.save(r.state, cfg)
-            print(f"saved checkpoint @ {step}", flush=True)
-    if r.ckpt.latest_step() != r.state.step:
+            say(f"saved checkpoint @ {step}")
+    if rank0 and r.ckpt.latest_step() != r.state.step:
         r.ckpt.save(r.state, cfg)
-    print(f"final checkpoint @ {r.state.step}", flush=True)
+    say(f"final checkpoint @ {r.state.step}")
 
 
 def main(argv=None):
-    run(prepare(argv))
+    try:
+        run(prepare(argv))
+        mesh.barrier()
+    finally:
+        mesh.leave()
 
 
 if __name__ == "__main__":

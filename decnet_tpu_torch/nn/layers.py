@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from decnet_tpu_torch.parallel import mesh
+
 # The norm of the units built inside `norm_override`: "bn" (the reference's
 # batch norm) or "gn" (GroupNorm in every unit that would have batch norm).
 _NORM = contextvars.ContextVar("decnet_torch_norm", default="bn")
@@ -80,22 +82,46 @@ class _BatchStats(torch.autograd.Function):
     `x.float().var()` would keep the f32 copy (twice a bf16 activation's
     bytes, for every batch-norm unit of a step); the backward computes
     g_mean / n + g_var * 2 (x - mean) / n in f32 from it and casts once,
-    as the cast's own backward would."""
+    as the cast's own backward would.
+
+    Under a process group of more than one process the statistics are
+    those of the global batch, as GSPMD makes them in JAX: the sums and
+    the count are all-reduced, the mean first, then the squared
+    deviations from it (two passes, as `var(unbiased=False)` takes them),
+    and the backward all-reduces g_mean and g_var, the sums of the ranks'
+    shares of the loss, before forming dx with the global count."""
 
     @staticmethod
     def forward(ctx, x):
         xf = x.float()
         dims = [0] + list(range(2, x.dim()))
-        mean = xf.mean(dims)
-        var = xf.var(dims, unbiased=False)
+        if mesh.world_size() == 1:
+            mean = xf.mean(dims)
+            var = xf.var(dims, unbiased=False)
+            ctx.n = x.numel() // x.shape[1]
+        else:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            n = x.numel() // x.shape[1]
+            s = mesh.all_reduce_sum(torch.cat([
+                xf.sum(dims), xf.new_tensor([float(n)])]))
+            mean = s[:-1] / s[-1]
+            var = mesh.all_reduce_sum(
+                ((xf - mean.view(shape)) ** 2).sum(dims)) / s[-1]
+            ctx.n = s[-1]
         ctx.save_for_backward(x, mean)
         return mean, var
 
     @staticmethod
     def backward(ctx, g_mean, g_var):
         x, mean = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        if mesh.world_size() > 1:
+            zero = torch.zeros_like(mean)
+            g = mesh.all_reduce_sum(torch.cat([
+                zero if g_mean is None else g_mean.float(),
+                zero if g_var is None else g_var.float()]))
+            g_mean, g_var = g.split(mean.numel())
         g = torch.zeros((), device=x.device)
         if g_mean is not None:
             g = g + g_mean.view(shape) / n

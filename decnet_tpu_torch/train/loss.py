@@ -3,7 +3,12 @@ smooth_l1, gt_pyramid, multi_stage_uploss (the reference's
 multi_stage_regression_Uploss), the detail mask loss (focal_loss,
 mask_l1_loss, detail_mask_loss: multi_stage_regression_UpMaskloss),
 upsample_loss, lr_consistency_loss and the chamfer loss (chamfer_error,
-chamfer_loss, multi_stage_chamfer).  Maps are (B,H,W), features NCHW."""
+chamfer_loss, multi_stage_chamfer).  Maps are (B,H,W), features NCHW.
+
+Every mean is over the global batch, as JAX's jitted step takes it: under
+a process group each rank returns its share, its local sum over the
+all-reduced count (`parallel/mesh.py`), and the shares sum to the loss of
+the whole batch."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -13,12 +18,15 @@ import torch
 from decnet_tpu_torch.config import LossConfig
 from decnet_tpu_torch.ops.resize import downsample_gt, interpolate
 from decnet_tpu_torch.ops.warp import warp_by_disparity
+from decnet_tpu_torch.parallel import mesh
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x over mask != 0; 0 when the mask is empty."""
+    """Mean of x over mask != 0; 0 when the mask is empty.  Under a
+    process group, this rank's share of the mean over every process's
+    pixels: its sum over the global count (0 when that is 0)."""
     m = mask.float()
-    cnt = m.sum()
+    cnt = mesh.global_sum(m.sum())
     return torch.where(cnt > 0, (x.float() * m).sum() / cnt.clamp(min=1.0),
                        0.0)
 
@@ -98,11 +106,12 @@ def multi_stage_uploss(outputs: Dict, gt: torch.Tensor, cfg: LossConfig,
 def focal_loss(pt: torch.Tensor, gt: torch.Tensor, gamma: float = 2.0,
                alpha: float = 0.5) -> torch.Tensor:
     """Mean binary focal loss of probabilities `pt` against targets `gt`,
-    in f32, with log(p + 1e-5) on both sides."""
+    in f32, with log(p + 1e-5) on both sides (this rank's share of the
+    global batch's mean under a process group)."""
     pt, gt = pt.float(), gt.float()
     loss = (-alpha * (1 - pt) ** gamma * gt * torch.log(pt + 1e-5)
             - (1 - alpha) * pt ** gamma * (1 - gt) * torch.log(1 - pt + 1e-5))
-    return loss.mean()
+    return mesh.global_mean(loss)
 
 
 def mask_l1_loss(x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -161,13 +170,14 @@ def lr_consistency_loss(preds: Sequence[torch.Tensor],
                         weights: Sequence[float]) -> torch.Tensor:
     """Per stage, the right features warped by that stage's prediction
     (the plain unclipped `warp_by_disparity`) against the left ones: the
-    squared difference summed over channels, averaged over pixels, times
+    squared difference summed over channels, averaged over pixels (of the
+    global batch, see `parallel/mesh.py::global_mean`), times
     weights[stage].  Features are NCHW lists, coarsest first."""
     total = torch.zeros((), device=preds[0].device)
     for stage, pred in enumerate(preds):
         warped = warp_by_disparity(right_feats[stage], pred)
         diff = (left_feats[stage].float() - warped.float()) ** 2
-        total = total + weights[stage] * diff.sum(dim=1).mean()
+        total = total + weights[stage] * mesh.global_mean(diff.sum(dim=1))
     return total
 
 

@@ -6,17 +6,25 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from decnet_tpu_torch.parallel import mesh
 
 def epe_and_d1(pred: torch.Tensor, gt: torch.Tensor, max_disp: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(epe, d1): mean |pred - gt| over 0 < gt < max_disp, and the
-    percentage of those pixels whose error is >= 3 px and >= 5% of gt."""
+    percentage of those pixels whose error is >= 3 px and >= 5% of gt.
+    Under a process group, of every process's pixels: the sums and the
+    count are all-reduced."""
     valid = (gt > 0) & (gt < max_disp)
     err = (pred - gt).abs()
-    cnt = valid.sum().clamp(min=1)
-    epe = torch.where(valid, err, 0.0).sum() / cnt
+    err_sum = torch.where(valid, err, 0.0).sum()
     ok = (err < 3.0) | (err < 0.05 * gt)
-    d1 = 100.0 - (valid & ok).sum() / cnt * 100.0
+    ok_sum, cnt = (valid & ok).sum(), valid.sum()
+    if mesh.world_size() > 1:
+        err_sum, ok_sum, cnt = mesh.all_reduce_sum(
+            torch.stack([err_sum.float(), ok_sum.float(), cnt.float()]))
+    cnt = cnt.clamp(min=1)
+    epe = err_sum / cnt
+    d1 = 100.0 - ok_sum / cnt * 100.0
     return epe, d1
 
 

@@ -16,6 +16,7 @@ import torch
 from decnet_tpu_torch.config import Config
 from decnet_tpu_torch.models.decnet import DecNet
 from decnet_tpu_torch.ops.resize import interpolate
+from decnet_tpu_torch.parallel import mesh
 from decnet_tpu_torch.train import loss as loss_lib
 from decnet_tpu_torch.train import state as state_lib
 from decnet_tpu_torch.train.metrics import epe_and_d1
@@ -107,7 +108,10 @@ def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
     runs the forward on the packed twin with the faithful model's tensors
     gathered into it (freeze_bn only: a packed BN would collect per-phase
     statistics).  Returns the logs (the loss terms and "total") and every
-    parameter's gradient, zeros for a parameter the loss does not reach."""
+    parameter's gradient, zeros for a parameter the loss does not reach.
+    Under a process group both are summed over the processes (each rank's
+    loss is its share of the global batch's, `parallel/mesh.py`), so every
+    rank holds the global batch's loss and gradient."""
     model.train(not freeze_bn)
     for p in model.parameters():
         p.grad = None
@@ -131,6 +135,8 @@ def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
+    mesh.all_reduce_tensors(grads)
+    mesh.all_reduce_tensors(list(logs.values()))
     return logs, grads
 
 
