@@ -1836,6 +1836,345 @@ def distributed_step_phase(torch, counters):
                        "launches": [r["launches"] for r in dry["ranks"]]}}
 
 
+# -- the mesh's tile and disp axes ----------------------------------------
+
+MESH_SERVE_PROCS = 2      # tile 2
+MESH_STEP = (1, 2, 2)     # data, tile, disp: 4 processes
+MESH_TIMED_STEPS = 3      # after the first, checked, step
+MESH_PEAK_RATIO = 0.75    # each rank's peak below this share of one process's
+MESH_DRYRUN_PROCS = 8     # JAX's dry run: data 2 x tile 2 x disp 2
+ROW_SHARDS = 2            # the warp on rows: tile 2
+WARP_ROWS_FWD_TOL = 1e-4
+
+
+def row_shard(torch, x, t, n):
+    """Rows of tile shard t of n of x (B,C,H,W) with one neighbour row each
+    side (zeros beyond the image), and the kernel's rows (Hg, row0, 1)."""
+    H = x.shape[2]
+    h = H // n
+    pad = torch.nn.functional.pad(x, (0, 0, 1, 1))
+    return pad[:, :, t * h:(t + 1) * h + 2].contiguous(), (H, t * h, 1)
+
+
+def warp_rows_parity(torch, kwarp, gen, flush_buf, stages, B):
+    """The warp kernel on row shards (a row offset, a halo row each side;
+    the mesh's tile axis) at the stage shapes: each shard's launch against
+    `warp_plain` on the same shard (forward WARP_ROWS_FWD_TOL, f32 and
+    bf16) and against those rows of the unsplit launch (equal); the
+    differentiable warp's gradients over the shards, summed back into the
+    image, against the unsplit ones (BWD_TOL); times in bf16 of one
+    shard's launch."""
+    F = torch.nn.functional
+    recs = []
+    for C, H, W, D in stages:
+        _, _, feat32, _, disp = stage_inputs(torch, gen, B, C, H, W, D)
+        h = H // ROW_SHARDS
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            feat = feat32.to(dt)
+            whole = kwarp.warp(feat, disp, D)
+            err = 0.0
+            for t in range(ROW_SHARDS):
+                part, rows = row_shard(torch, feat, t, ROW_SHARDS)
+                d = disp[:, t * h:(t + 1) * h].contiguous()
+                got = kwarp.warp(part, d, D, rows)
+                want = kwarp.warp_plain(part, d, D, rows)
+                e = float((got.float() - want.float()).abs().max())
+                err = max(err, e)
+                if not torch.isfinite(got.float()).all() or \
+                        e > WARP_ROWS_FWD_TOL:
+                    fail(f"warp rows C={C} {H}x{W} {dname} shard {t}: "
+                         f"{e:.3e} from warp_plain")
+                if not torch.equal(got, whole[:, :, t * h:(t + 1) * h]):
+                    fail(f"warp rows C={C} {H}x{W} {dname} shard {t}: not "
+                         f"the unsplit launch's rows")
+            # gradients: the shards' feature gradients summed into the
+            # image (a halo row belongs to the neighbour)
+            g = torch.randn(feat.shape, generator=gen, device=DEV).to(dt)
+            with torch.enable_grad():
+                f1 = feat.detach().requires_grad_(True)
+                d1 = disp.detach().requires_grad_(True)
+                (kwarp._Warp.apply(f1, d1, D, True, None).float()
+                 * g.float()).sum().backward()
+                dfeat = torch.zeros((B, C, H + 2, W), device=DEV)
+                ddisp = torch.zeros_like(disp)
+                for t in range(ROW_SHARDS):
+                    part, rows = row_shard(torch, feat, t, ROW_SHARDS)
+                    part.requires_grad_(True)
+                    d = disp[:, t * h:(t + 1) * h].contiguous() \
+                        .requires_grad_(True)
+                    (kwarp._Warp.apply(part, d, D, True, rows).float()
+                     * g[:, :, t * h:(t + 1) * h].float()).sum().backward()
+                    dfeat[:, :, t * h:(t + 1) * h + 2] += part.grad.float()
+                    ddisp[:, t * h:(t + 1) * h] = d.grad
+            gerr = 0.0
+            for got, want in ((dfeat[:, :, 1:-1], f1.grad.float()),
+                              (ddisp, d1.grad)):
+                scale = float(want.abs().max()) or 1.0
+                gerr = max(gerr, float((got - want).abs().max()) / scale)
+            if not gerr <= BWD_TOL[dname]:
+                fail(f"warp rows C={C} {H}x{W} {dname}: gradients "
+                     f"{gerr:.3e} from the unsplit ones")
+            r = {"shape": [C, H, W, D], "dtype": dname, "max_abs_err": err,
+                 "grad_rel_err": gerr}
+            if dt == torch.bfloat16:
+                part, rows = row_shard(torch, feat, 0, ROW_SHARDS)
+                d = disp[:, :h].contiguous()
+                Hg, row0, _ = rows
+                # the library yardstick: grid_sample over the shard at the
+                # same positions (rows y Hg/(Hg-1) - 0.5 - (row0 - 1))
+                Hf = h + 2
+                gx = 2.0 * (torch.arange(W, device=DEV) - d) / (W - 1) - 1
+                yy = (torch.arange(h, device=DEV) * (Hg / (Hg - 1.0)) - 0.5
+                      + 1.0)
+                gy = (2.0 * yy + 1.0) / Hf - 1.0
+                grid = torch.stack([gx, gy.view(1, h, 1).expand_as(gx)],
+                                   -1).to(dt)
+                nbytes = (part.numel() * part.element_size()
+                          + B * C * h * W * part.element_size()
+                          + d.numel() * 4)
+                bms, by = bound(nbytes, B * C * h * W * 30.0)
+                r.update(
+                    ms=time_cuda(torch, lambda: kwarp.warp(part, d, D, rows),
+                                 20, flush_buf),
+                    plain_ms=time_cuda(torch, lambda: kwarp.warp_plain(
+                        part, d, D, rows), 5, flush_buf),
+                    bytes=nbytes, bound_ms=bms, bound_by=by,
+                    library_ms=time_cuda(torch, lambda: F.grid_sample(
+                        part, grid, align_corners=False), 20, flush_buf))
+            recs.append(r)
+            print(f"  warp rows C={C} {H}x{W} B={B} {dname}: "
+                  + " ".join(f"{k}={v:.4g}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in r.items()
+                             if k not in ("shape", "dtype")), flush=True)
+    return recs
+
+
+def mesh_serve_worker(inputs, max_disp):
+    """One request's forward on this rank's rows (tile 2): its prediction
+    rows, kernel launches, peak memory and collectives."""
+    import torch
+    from decnet_tpu_torch.config import MeshConfig
+    from decnet_tpu_torch.parallel import mesh
+    from decnet_tpu_torch.parallel.dryrun import kernel_counters
+    from decnet_tpu_torch.weights import load_checkpoint
+    dev = mesh.init_distributed(DEV, "gloo")
+    m = mesh.make_mesh(MeshConfig(data=1, tile=mesh.world_size()))
+    model = load_checkpoint(CKPT, device=dev)
+    b = mesh.shard_batch({k: [x.to(dev) for x in v] if isinstance(v, list)
+                          else v.to(dev) for k, v in inputs.items()}, m)
+    counters = kernel_counters()
+    with torch.no_grad():
+        model(b["left"], b["right"], b["left_masks"], b["right_masks"],
+              max_disp=max_disp)                               # warm-up
+        torch.cuda.synchronize()
+        zero_launches(counters)
+        mesh.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out = model(b["left"], b["right"], b["left_masks"],
+                    b["right_masks"], max_disp=max_disp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    # numpy: a tensor in the result queue would outlive its process's
+    # shared memory
+    return {"pred": out["preds"][-1].float().cpu().numpy(),
+            "launches": count_launches(counters), "ms": ms,
+            "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+            "collectives": {k: list(v) for k, v in mesh.COUNTS.items()},
+            "position": m.position()}
+
+
+def mesh_serve_phase(torch, gen):
+    """One faithful request (SERVE, bf16, the demo's host masks) split over
+    tile MESH_SERVE_PROCS (gloo processes sharing the card) against this
+    process's unsplit forward: mean |delta| <= SERVE_MEAN_TOL px; every
+    rank launched the moments and warp kernels."""
+    from decnet_tpu_torch.cli.demo import host_masks
+    from decnet_tpu_torch.data import io as dio
+    from decnet_tpu_torch.data.synthetic import synthetic_pair
+    from decnet_tpu_torch.parallel import dryrun
+    from decnet_tpu_torch.weights import load_checkpoint
+    H, W, D = SERVE
+    model = load_checkpoint(CKPT, device=DEV)
+    left, right, _, _ = synthetic_pair(H, W, gen, DEV)
+    lm, rm = host_masks(left, right, model.cfg)
+    inputs = {"left": dio.normalize_image(left.float()).cpu(),
+              "right": dio.normalize_image(right.float()).cpu(),
+              "left_masks": [m.cpu() for m in lm],
+              "right_masks": [m.cpu() for m in rm]}
+    with torch.no_grad():
+        one = model(inputs["left"].to(DEV), inputs["right"].to(DEV), lm, rm,
+                    max_disp=D)["preds"][-1].float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    ranks = dryrun.spawn(MESH_SERVE_PROCS, mesh_serve_worker, (inputs, D))
+    got = torch.cat([torch.from_numpy(r["pred"]) for r in ranks], dim=1)
+    delta = float((got - one).abs().mean())
+    for i, r in enumerate(ranks):
+        print(f"  rank {i} {r['position']}: {r['ms']:.2f} ms, peak "
+              f"{r['peak_mem_mb']:.1f} MiB, launches "
+              f"{json.dumps(r['launches'])}, collectives "
+              f"{json.dumps(r['collectives'])}", flush=True)
+        if r["launches"]["spamat_moments"] <= 0 or r["launches"]["warp"] <= 0:
+            fail(f"mesh_serve rank {i}: moments or warp not launched: "
+                 f"{r['launches']}")
+    if not (torch.isfinite(got).all() and got.shape == one.shape
+            and delta <= SERVE_MEAN_TOL):
+        fail(f"mesh_serve: tile {MESH_SERVE_PROCS} vs unsplit mean |delta| "
+             f"{delta:.4g} px (tol {SERVE_MEAN_TOL})")
+    return {"mean_abs_delta_px": delta,
+            "rank_ms": [r["ms"] for r in ranks],
+            "peak_mem_mb": [r["peak_mem_mb"] for r in ranks],
+            "rank_launches": [r["launches"] for r in ranks],
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]},
+            "collectives": [r["collectives"] for r in ranks]}
+
+
+def mesh_step_phase(torch):
+    """The faithful recipe (TRAIN_SHAPE, the on-device stream's first
+    global batch, ckpt_faithful's weights) over data x tile x disp =
+    MESH_STEP in gloo processes sharing the card
+    (`parallel/dryrun.py::data_parallel_step`, then MESH_TIMED_STEPS timed
+    steps), against one process's step on the whole batch: loss
+    TRAIN_LOSS_RTOL, gradient cosine TRAIN_GRAD_COS; every rank launched
+    the four kernels and holds rank 0's state; each rank's peak below
+    MESH_PEAK_RATIO of one process's.  Every leaf's gradient norm within
+    dryrun.LEAF_BAND of one process's (a sum over an idle axis gives 2x)
+    is held on the same step in f32 without TF32: in bf16 the disp split
+    alone moves a few small stage-3 leaves by up to ~17% (PERF.md §6),
+    and their bf16 ratios are printed beside.  Then the dry run on
+    MESH_DRYRUN_PROCS processes."""
+    import numpy as np
+    from decnet_tpu_torch.cli import train as tcli
+    from decnet_tpu_torch.config import MeshConfig
+    from decnet_tpu_torch.parallel import dryrun
+    run = tcli.prepare(["--config", os.path.join(CKPT, "config.json"),
+                        "--dataset", "synthetic", "--init_from", CKPT,
+                        "--ckpt_dir", os.path.join(ROOT, "build",
+                                                   "decnet_tpu_torch",
+                                                   "smoke_ckpt_mesh"),
+                        "--device", DEV])
+    cfg = run.cfg
+    shape = (cfg.train.batch_size, cfg.train.crop_h, cfg.train.crop_w,
+             cfg.model.max_disp, cfg.model.dtype)
+    if shape != TRAIN_SHAPE:
+        fail(f"mesh_step config {shape} is not the faithful run's")
+    batch = host_tensors(next(run.stream))
+    state = {k: v.detach().cpu() for k, v in
+             run.state.model.state_dict().items()}
+    del run
+    torch.cuda.empty_cache()
+    # one process on the whole batch, a fresh process as each rank is, so
+    # that the peaks compare
+    one = dryrun.data_parallel_step(1, cfg, state, batch, DEV,
+                                    backend="gloo",
+                                    steps=1 + MESH_TIMED_STEPS)[0]
+    d, t_, s_ = MESH_STEP
+    cfg.mesh = MeshConfig(data=d, tile=t_, disp=s_)
+    n = d * t_ * s_
+    t = time.perf_counter()
+    ranks = dryrun.data_parallel_step(n, cfg, state, batch, DEV,
+                                      backend="gloo",
+                                      steps=1 + MESH_TIMED_STEPS)
+    spawn_s = time.perf_counter() - t
+    g2 = torch.from_numpy(ranks[0]["grads"]).double()
+    g1 = torch.from_numpy(one["grads"]).double()
+    cos = float(torch.nn.functional.cosine_similarity(g2, g1, dim=0))
+    rel = abs(ranks[0]["loss"] - one["loss"]) / abs(one["loss"])
+    ratios = [ranks[0]["leaf_norms"][k] / v
+              for k, v in one["leaf_norms"].items() if v > 0]
+    bf16_outliers = dryrun.leaf_outliers(ranks[0]["leaf_norms"],
+                                         one["leaf_norms"])
+    # the same step in f32 without TF32, one process and the mesh
+    import copy
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    flags = dryrun.tf32()
+    dryrun.set_tf32((False, False))
+    try:
+        cfg32.mesh = MeshConfig()
+        one32 = dryrun.data_parallel_step(1, cfg32, state, batch, DEV,
+                                          backend="gloo")[0]
+        cfg32.mesh = cfg.mesh
+        mesh32 = dryrun.data_parallel_step(n, cfg32, state, batch, DEV,
+                                           backend="gloo")[0]
+    finally:
+        dryrun.set_tf32(flags)
+    leaves = dryrun.leaf_outliers(mesh32["leaf_norms"], one32["leaf_norms"])
+    ratios32 = [mesh32["leaf_norms"][k] / v
+                for k, v in one32["leaf_norms"].items() if v > 0]
+    rel32 = abs(mesh32["loss"] - one32["loss"]) / abs(one32["loss"])
+    per_step = lambda r: {k: [v[0] // MESH_TIMED_STEPS,
+                              v[1] * 1e3 / MESH_TIMED_STEPS]
+                          for k, v in r["collectives"].items()}
+    limit = MESH_PEAK_RATIO * one["peak_mem_mb"]
+    for r, res in enumerate(ranks):
+        print(f"  rank {r} {res['position']} ({res['device']}, "
+              f"{res['backend']}): loss {res['loss']:.6f} grad_norm "
+              f"{res['grad_norm']:.4f} steps "
+              + ", ".join(f"{x:.2f}" for x in res["step_ms"]) + " ms, "
+              f"collectives a step (calls, host ms) "
+              f"{json.dumps(per_step(res))}, peak {res['peak_mem_mb']:.1f} "
+              f"MiB, launches {json.dumps(res['launches'])}", flush=True)
+        if any(k <= 0 for k in res["launches"].values()):
+            fail(f"mesh_step rank {r}: a kernel was not launched: "
+                 f"{res['launches']}")
+        if res["rank_max_abs_diff"] != 0:
+            fail(f"mesh_step rank {r}: state differs from rank 0's by "
+                 f"{res['rank_max_abs_diff']}")
+        if not res["peak_mem_mb"] < limit:
+            fail(f"mesh_step rank {r}: peak {res['peak_mem_mb']:.1f} MiB "
+                 f"not below {MESH_PEAK_RATIO} x one process's "
+                 f"{one['peak_mem_mb']:.1f}")
+    print(f"  one process: loss {one['loss']:.6f} grad_norm "
+          f"{one['grad_norm']:.4f} steps "
+          + ", ".join(f"{x:.2f}" for x in one["step_ms"]) + " ms, peak "
+          f"{one['peak_mem_mb']:.1f} MiB; mesh {MESH_STEP} vs one: loss "
+          f"rel {rel:.3g}, gradient cosine {cos:.7f}, leaf norm ratios "
+          f"[{min(ratios):.4f}, {max(ratios):.4f}], outside "
+          f"{dryrun.LEAF_BAND}: {json.dumps(bf16_outliers)}", flush=True)
+    print(f"  f32 without TF32: loss {mesh32['loss']:.6f} / one process "
+          f"{one32['loss']:.6f} (rel {rel32:.3g}), leaf norm ratios "
+          f"[{min(ratios32):.5f}, {max(ratios32):.5f}]", flush=True)
+    if not (rel <= TRAIN_LOSS_RTOL and cos >= TRAIN_GRAD_COS and not leaves
+            and np.isfinite(ranks[0]["grads"]).all()):
+        fail(f"mesh_step: mesh {MESH_STEP} vs one process: loss rel "
+             f"{rel:.3e} (tol {TRAIN_LOSS_RTOL}), gradient cosine {cos:.6f} "
+             f"(tol {TRAIN_GRAD_COS}), f32 leaves outside "
+             f"{dryrun.LEAF_BAND}: {leaves}")
+    t = time.perf_counter()
+    try:
+        dry = dryrun.dryrun_multichip(MESH_DRYRUN_PROCS, DEV)
+    except AssertionError as e:
+        fail(f"mesh_step dry run on {MESH_DRYRUN_PROCS}: {e}")
+    dry_s = time.perf_counter() - t
+    timed = lambda ms: float(np.mean(ms[1:]))
+    return {"loss_rel": rel, "grad_cos": cos, "spawn_s": spawn_s,
+            "leaf_ratio_range": [min(ratios), max(ratios)],
+            "bf16_leaf_outliers": bf16_outliers,
+            "f32_leaf_ratio_range": [min(ratios32), max(ratios32)],
+            "f32_loss_rel": rel32,
+            "timed_step_ms": max(timed(r["step_ms"]) for r in ranks),
+            "one_process_timed_step_ms": timed(one["step_ms"]),
+            "step_ms": [r["step_ms"] for r in ranks],
+            "collectives_per_step": [per_step(r) for r in ranks],
+            "peak_mem_mb": [r["peak_mem_mb"] for r in ranks],
+            "one_process_peak_mem_mb": one["peak_mem_mb"],
+            "rank_launches": [r["launches"] for r in ranks],
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]},
+            "dryrun": {"loss": dry["ranks"][0]["loss"],
+                       "replay_loss": dry["replay"]["loss"],
+                       "grad_norm": dry["ranks"][0]["grad_norm"],
+                       "replay_grad_norm": dry["replay"]["grad_norm"],
+                       "s": dry_s,
+                       "launches": {k: sum(r["launches"][k]
+                                           for r in dry["ranks"])
+                                    for k in dry["ranks"][0]["launches"]}}}
+
+
 def cli_train_worker(argv):
     """`cli.train.main(argv)` in this process (a rank, when the process
     group's variables are set): the lines it printed, the steps it saved
@@ -2764,6 +3103,13 @@ def main():
         windowed = windowed_parity(torch, spamat, gen, flush_buf)
         windowed_train = windowed_parity(torch, spamat, gen, flush_buf,
                                          TRAIN_WINDOWED_STAGES, TRAIN_B)
+        # the warp on row shards (the mesh's tile axis), at the serving
+        # and the training shapes
+        print("  -- warp on row shards", flush=True)
+        warp_rows = (warp_rows_parity(torch, kwarp, gen, flush_buf, STAGES,
+                                      1)
+                     + warp_rows_parity(torch, kwarp, gen, flush_buf,
+                                        TRAIN_STAGES, TRAIN_B))
         # the bench's batch (cli/bench.py, B = 4 of 540x972)
         print("  -- bench batch", flush=True)
         parity_bench = kernel_parity(torch, spamat, kwarp, gen, flush_buf,
@@ -2943,6 +3289,44 @@ def main():
           dryrun_loss="{loss:.6f}/{replay_loss:.6f}".format(**ds_["dryrun"]),
           dryrun_grad_norm="{grad_norm:.4f}/{replay_grad_norm:.4f}".format(
               **ds_["dryrun"]), dryrun_s=f"{ds_['dryrun_s']:.1f}")
+
+    # -- 6d. the mesh's tile and disp axes: a request over tile 2, the
+    # faithful step over tile 2 x disp 2, the dry run on 8 processes
+    t0 = time.perf_counter()
+    mesh_serve = mesh_serve_phase(torch, gen)
+    torch.cuda.empty_cache()
+    phase("mesh_serve", t0, processes=MESH_SERVE_PROCS, backend="gloo",
+          mesh=f"1x{MESH_SERVE_PROCS}x1", size=f"{SERVE[0]}x{SERVE[1]}",
+          mean_abs_delta_px=f"{mesh_serve['mean_abs_delta_px']:.5g}",
+          rank_ms=",".join(f"{x:.2f}" for x in mesh_serve["rank_ms"]),
+          peak_mem_mb=",".join(f"{x:.1f}" for x in mesh_serve["peak_mem_mb"]),
+          launches=json.dumps(mesh_serve["rank_launches"]),
+          collectives=json.dumps(mesh_serve["collectives"][0]))
+    t0 = time.perf_counter()
+    mesh_step = mesh_step_phase(torch)
+    torch.cuda.empty_cache()
+    ms_ = mesh_step
+    phase("mesh_step", t0, processes=math.prod(MESH_STEP), backend="gloo",
+          mesh="x".join(map(str, MESH_STEP)), batch=f"{b}", size=f"{h}x{w}",
+          dtype=dt, loss_rel=f"{ms_['loss_rel']:.3g}",
+          grad_cos=f"{ms_['grad_cos']:.7f}",
+          leaf_ratio_range=",".join(f"{x:.4f}"
+                                    for x in ms_["leaf_ratio_range"]),
+          f32_leaf_ratio_range=",".join(
+              f"{x:.5f}" for x in ms_["f32_leaf_ratio_range"]),
+          step_ms=f"{ms_['timed_step_ms']:.2f}",
+          one_process_step_ms=f"{ms_['one_process_timed_step_ms']:.2f}",
+          collectives_per_step=json.dumps(ms_["collectives_per_step"][0]),
+          peak_mem_mb=",".join(f"{x:.1f}" for x in ms_["peak_mem_mb"]),
+          one_process_peak_mem_mb=f"{ms_['one_process_peak_mem_mb']:.1f}",
+          launches=json.dumps(ms_["rank_launches"]),
+          spawn_s=f"{ms_['spawn_s']:.1f}")
+    phase(f"dryrun_{MESH_DRYRUN_PROCS}",
+          time.perf_counter() - ms_["dryrun"]["s"], mesh="2x2x2",
+          loss="{loss:.6f}/{replay_loss:.6f}".format(**ms_["dryrun"]),
+          grad_norm="{grad_norm:.4f}/{replay_grad_norm:.4f}".format(
+              **ms_["dryrun"]), seconds=f"{ms_['dryrun']['s']:.1f}",
+          launches=json.dumps(ms_["dryrun"]["launches"]))
 
     # -- 7. the s2d model with learned masks and windowed matching, served
     t0 = time.perf_counter()
@@ -3225,6 +3609,11 @@ def main():
             v["request_launches"][name] + v["step_launches"][name]
             for v in knobs.values())
         by_path["distributed_step"] = dist_step["launches"][name]
+        if name in launches:
+            by_path["mesh_serve"] = mesh_serve["launches"][name]
+        by_path["mesh_step"] = mesh_step["launches"][name]
+        by_path[f"dryrun_{MESH_DRYRUN_PROCS}"] = mesh_step["dryrun"][
+            "launches"][name]
         by_path["train_multihost"] = multihost["launches"][name]
         if name in launches:
             by_path["demo_dump"] = demo_cli["dump"]["launches"][name]
@@ -3238,6 +3627,24 @@ def main():
             k["max_abs_err"] = max(k["max_abs_err"], max(
                 r["max_abs_err"] for r in parity_train[name]))
         kernels.append(k)
+    # the warp on row shards (a row offset and a halo row each side): its
+    # launches in the mesh phases, times of one shard's launch at the
+    # serving and the training shapes
+    by_path = {"mesh_serve": mesh_serve["launches"]["warp"],
+               "mesh_step": mesh_step["launches"]["warp"],
+               f"dryrun_{MESH_DRYRUN_PROCS}": mesh_step["dryrun"][
+                   "launches"]["warp"]}
+    kernels.append({"name": "warp_rows", "route": "cuda",
+                    "source": sources["warp"][0],
+                    "replaces": sources["warp"][1],
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "max_abs_err": max(r["max_abs_err"] for r in warp_rows),
+                    **summed([r for r in warp_rows if r["shape"][1] in
+                              [st[1] for st in STAGES]]),
+                    "train_shapes": summed([r for r in warp_rows
+                                            if r["shape"][1] in
+                                            [st[1] for st in TRAIN_STAGES]])})
     # the moments and the warp at the bench's batch (B = 4), with the
     # launches of the bench's run (its three variants)
     for name, recs in parity_bench.items():
@@ -3323,6 +3730,8 @@ def main():
                        "middlebury_full_skip": skip,
                        "standalone_matching": standalone,
                        "distributed_step": dist_step,
+                       "warp_rows": warp_rows, "mesh_serve": mesh_serve,
+                       "mesh_step": mesh_step,
                        "train_multihost": multihost, "profiling": prof,
                        "latency_ms": lat, "host_masks_ms": mask_ms,
                        "peak_mem_mb": peak_mb,

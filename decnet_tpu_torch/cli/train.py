@@ -39,12 +39,17 @@ RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT are set, as the JAX CLI
 joins its cluster when JAX_COORDINATOR_ADDRESS is): one process per card
 (`parallel/mesh.py::init_distributed`: nccl, or `--dist_backend gloo`,
 which also lets two processes share one card).  `train.batch_size` is the
-global batch; each process loads `batch_size // world` rows of it
-(`DataLoader(shard=(rank, world))`), the batch statistics, losses, eval
-metrics and gradients are those of the global batch, and every process
-holds the same state (rank 0's, broadcast after a restore or warm start).
-Only rank 0 logs and writes checkpoints.  The on-device stream is
-single-process and is refused there, as in JAX.
+global batch.  The processes form the mesh `mesh.data x mesh.tile x
+mesh.disp` (`--set mesh.tile=2 --set mesh.disp=2`; a world of another size
+is refused): each loads `batch_size // data` images of it
+(`DataLoader(shard=(data index, data))`) and keeps its rows of them over
+tile, and the stage-0 hypotheses split over disp (`parallel/mesh.py`).
+The batch statistics, losses, eval metrics and gradients are those of the
+global batch, and every process holds the same state (rank 0's, broadcast
+after a restore or warm start).  Only rank 0 logs and writes checkpoints.
+The on-device stream gives each process its rows of the global draw when
+data is 1, and is refused with more than one data rank, as JAX refuses it
+across processes.
 
 `train.max_rss_gb` > 0 is the JAX CLI's host memory guard: when a
 process's resident set (/proc/self/status) exceeds it at a log step, rank
@@ -55,6 +60,10 @@ Usage:
   torchrun --nproc_per_node G -m decnet_tpu_torch.cli.train --multihost 1 \
       --config runs/ckpt_faithful/config.json --dataset sceneflow \
       --root /data/sf --set data.on_device=false --ckpt_dir out/
+  torchrun --nproc_per_node 4 -m decnet_tpu_torch.cli.train --multihost 1 \
+      --config runs/ckpt_faithful/config.json --dataset synthetic \
+      --set mesh.tile=2 --set mesh.disp=2 --ckpt_dir out/ \
+      [--dist_backend gloo]
   python -m decnet_tpu_torch.cli.train --config runs/ckpt_faithful/config.json \
       --dataset synthetic --ckpt_dir out/ --steps 100 \
       [--init_from runs/ckpt_faithful] [--set train.batch_size=4 ...] \
@@ -246,13 +255,15 @@ def prepare(argv=None) -> Run:
         dev = mesh.init_distributed(args.device, args.dist_backend)
     else:
         dev = resolve_device(args.device)
-    mesh.make_mesh(cfg.mesh)
-    # train.batch_size is the global batch; this process loads its share
+    m = mesh.make_mesh(cfg.mesh)
+    # train.batch_size is the global batch; this process loads its images
+    # of it (its rows are cut from them below)
     shard, local_bs = mesh.shard(cfg.train.batch_size)
-    if mesh.world_size() == 1:
+    if m.data == 1:
         shard = None
     elif cfg.data.on_device:
         raise ValueError("on_device data stream is single-process")
+    split = m if m.size > 1 else None
     # the fresh initialisation is drawn from train.seed, as JAX's is
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
@@ -287,10 +298,11 @@ def prepare(argv=None) -> Run:
                       thold=cfg.data.mask_thold, dtype=cfg.model.torch_dtype,
                       device=dev, variant=cfg.data.variant)
         stream = device_batch_stream(cfg.train.seed, start_step=state.step,
-                                     **gen_kw)
+                                     mesh=split, **gen_kw)
         eval_batches = None
         if args.eval_split:
-            val = device_batch_stream(cfg.train.seed, val=True, **gen_kw)
+            val = device_batch_stream(cfg.train.seed, val=True, mesh=split,
+                                      **gen_kw)
             eval_batches = [next(val) for _ in range(args.eval_batches)]
     else:
         ds_kw = dict(scale=cfg.model.down_scale,
@@ -306,6 +318,8 @@ def prepare(argv=None) -> Run:
             ds, batch_size=local_bs, shuffle=True,
             num_workers=cfg.data.num_workers, drop_last=True,
             seed=cfg.train.seed, shard=shard), dev)
+        if m.tile > 1:
+            stream = (mesh.shard_batch(b, m, images=False) for b in stream)
         eval_batches = None
         if args.eval_split:
             # the first eval_batches of one epoch, sent to the device once
@@ -320,7 +334,7 @@ def prepare(argv=None) -> Run:
                 b = to_device(b, dev)
                 for k in HOST_KEYS:
                     b.pop(k, None)
-                eval_batches.append(b)
+                eval_batches.append(mesh.shard_batch(b, m, images=False))
     return Run(cfg, state, stream, eval_batches, args.eval_every, ckpt,
                packed)
 
@@ -364,7 +378,7 @@ def run(r: Run) -> None:
             if t.max_rss_gb > 0:
                 # every process leaves together when any is over the limit
                 gb = rss_gb()
-                over = mesh.global_sum(torch.tensor(
+                over = mesh.all_reduce_sum(torch.tensor(
                     float(gb > t.max_rss_gb), device=dev))
                 if float(over) > 0:
                     if rank0:

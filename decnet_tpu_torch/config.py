@@ -155,13 +155,12 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
+    """The (data, tile, disp) mesh: images, image rows and stage-0
+    hypotheses split over processes (`parallel/mesh.py`); data -1 takes
+    every process left."""
     data: int = -1
     tile: int = 1
     disp: int = 1
-
-    def __post_init__(self):
-        _refuse("MeshConfig", self, {"tile": self.tile != 1,
-                                     "disp": self.disp != 1})
 
 
 @dataclasses.dataclass

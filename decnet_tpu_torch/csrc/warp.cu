@@ -12,6 +12,13 @@
 // rows first, then the horizontal tent weights max(0, 1 - |col - x|), in
 // f32, as the TPU kernel's two passes do.  The output has feat's dtype.
 //
+// Row shards (the mesh's tile axis, parallel/mesh.py).  The output may be
+// rows [row0, row0 + H) of an image of Hg rows, and then h and H above are
+// the global row and Hg.  feat then holds rows [row0 - halo, row0 + H +
+// halo): the shard's rows with `halo` (0 or 1) neighbour rows each side,
+// which is every row y can reach.  A row outside [0, Hg) is never read.
+// The unsplit launch is Hg = H, row0 = 0, halo = 0.
+//
 // Bound on this card: bytes.  One read of the features and the disparity
 // and one write of the output: at the serving stage-3 shape (C = 8,
 // 540x972, bf16) ~19 MB, ~5.6 us at 3.35 TB/s.
@@ -79,11 +86,13 @@ template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 warp_kernel(const T* __restrict__ feat, const float* __restrict__ disp,
             T* __restrict__ out, int C, int H, int W, int cg, float lo,
-            float hi, float sx, float sy) {
+            float hi, float sx, float sy, int Hf, int Hg, int row0,
+            int first) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int GE = staging::kGranBytes / (int)sizeof(T);
-  const long long hw = (long long)H * W;
-  const int stride = row_stride(W, GE, hw);
+  const long long hw = (long long)H * W;      // an output plane
+  const long long hw_in = (long long)Hf * W;  // a feature plane
+  const int stride = row_stride(W, GE, hw_in);
   const size_t rows_bytes = align16(sizeof(T) * cg * stride);
   T* r0_s = reinterpret_cast<T*>(smem);
   T* r1_s = reinterpret_cast<T*>(smem + rows_bytes);
@@ -92,21 +101,24 @@ warp_kernel(const T* __restrict__ feat, const float* __restrict__ disp,
   const int c0 = blockIdx.x * cg, nc = min(cg, C - c0);
   const int h = blockIdx.y, b = blockIdx.z;
   const long long plane0 = ((long long)b * C + c0) * hw;   // channel c0
-  const long long n_total = (long long)gridDim.z * C * hw;
-  const float y = __fmaf_rn((float)h, sy, -0.5f);
+  const long long plane0_in = ((long long)b * C + c0) * hw_in;
+  const long long n_total = (long long)gridDim.z * C * hw_in;
+  const float y = __fmaf_rn((float)(row0 + h), sy, -0.5f);
   const float y0 = floorf(y);
   const float wy1 = y - y0;
   const float wy0 = 1.f - wy1;
-  const int yi = (int)y0;                     // -1 <= yi <= H - 1
-  const bool ok0 = yi >= 0 && yi < H, ok1 = yi + 1 >= 0 && yi + 1 < H;
-  const long long base0 = plane0 + (long long)yi * W;
+  const int yi = (int)y0;                     // -1 <= yi <= Hg - 1
+  const int li = yi - first;                  // its row in feat
+  const bool ok0 = yi >= 0 && yi < Hg && li >= 0 && li < Hf;
+  const bool ok1 = yi + 1 < Hg && li + 1 >= 0 && li + 1 < Hf;
+  const long long base0 = plane0_in + (long long)li * W;
   const long long base1 = base0 + W;
   const long long dbase = ((long long)b * H + h) * W;       // (B,H,W) disp
   DECNET_STAMP(0);
   staging::stage_rows(d_s, row_stride(W, kMapGE, 0), disp, dbase, 0,
                       (long long)gridDim.z * hw, 1, 0, W);
-  if (ok0) staging::stage_rows(r0_s, stride, feat, base0, hw, n_total, nc, 0, W);
-  if (ok1) staging::stage_rows(r1_s, stride, feat, base1, hw, n_total, nc, 0, W);
+  if (ok0) staging::stage_rows(r0_s, stride, feat, base0, hw_in, n_total, nc, 0, W);
+  if (ok1) staging::stage_rows(r1_s, stride, feat, base1, hw_in, n_total, nc, 0, W);
   staging::cp_async_commit();
 
   const T* a_s = r0_s + (ok0 ? stage_lead<T>(base0, 0) : 0);
@@ -150,11 +162,12 @@ warp_kernel(const T* __restrict__ feat, const float* __restrict__ disp,
 template <typename T>
 int launch(const void* feat, const void* disp, void* out, int B, int C,
            int H, int W, int cg, int threads, int smem, float lo, float hi,
-           float sx, float sy, cudaStream_t s) {
+           float sx, float sy, int Hf, int Hg, int row0, int first,
+           cudaStream_t s) {
   // The plan's numbers, checked against what this kernel needs.
   if (cg < 1 || cg > C || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 ||
-      (size_t)smem != smem_bytes<T>(cg, W, (long long)H * W) ||
+      (size_t)smem != smem_bytes<T>(cg, W, (long long)Hf * W) ||
       smem > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -165,30 +178,37 @@ int launch(const void* feat, const void* disp, void* out, int B, int C,
   dim3 grid((C + cg - 1) / cg, H, B);
   warp_kernel<T><<<grid, threads, smem, s>>>(
       static_cast<const T*>(feat), static_cast<const float*>(disp),
-      static_cast<T*>(out), C, H, W, cg, lo, hi, sx, sy);
+      static_cast<T*>(out), C, H, W, cg, lo, hi, sx, sy, Hf, Hg, row0,
+      first);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// feat (B,C,H,W) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// disp (B,H,W) f32; out like feat; their data on 16 bytes.  cg, threads and smem
-// are warp_plan's.  Returns a cudaError_t.
+// feat (B,C,H + 2 halo,W) contiguous, f32 (is_bf16 = 0) or bf16
+// (is_bf16 = 1); disp (B,H,W) f32; out (B,C,H,W) like feat; their data on
+// 16 bytes.  The output rows are rows [row0, row0 + H) of an image of Hg
+// rows (Hg = H, row0 = 0, halo = 0 unsplit).  cg, threads and smem are
+// warp_plan's.  Returns a cudaError_t.
 extern "C" int warp_disparity(const void* feat, const void* disp, void* out,
                               int B, int C, int H, int W, int max_disp,
                               int neg_margin, int is_bf16, int cg,
-                              int threads, int smem, void* stream) {
-  const long long total = (long long)B * C * H * W;
-  if (B <= 0 || C <= 0 || H < 2 || W < 2 || total >= (1LL << 31) ||
-      H > 65535 || B > 65535)
+                              int threads, int smem, int Hg, int row0,
+                              int halo, void* stream) {
+  const int Hf = H + 2 * halo;
+  const long long total = (long long)B * C * Hf * W;
+  if (B <= 0 || C <= 0 || H < 1 || W < 2 || Hg < 2 || total >= (1LL << 31) ||
+      H > 65535 || B > 65535 || row0 < 0 || row0 + H > Hg || halo < 0 ||
+      halo > 1)
     return (int)cudaErrorInvalidValue;
   const float sx = (float)(W / (W - 1.0));
-  const float sy = (float)(H / (H - 1.0));
+  const float sy = (float)(Hg / (Hg - 1.0));
   const float lo = -(float)neg_margin, hi = (float)max_disp;
+  const int first = row0 - halo;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(feat, disp, out, B, C, H, W, cg, threads,
-                                 smem, lo, hi, sx, sy, s);
+                                 smem, lo, hi, sx, sy, Hf, Hg, row0, first, s);
   return launch<float>(feat, disp, out, B, C, H, W, cg, threads, smem, lo, hi,
-                       sx, sy, s);
+                       sx, sy, Hf, Hg, row0, first, s);
 }

@@ -34,6 +34,7 @@ from decnet_tpu_torch.config import VARIANTS
 from decnet_tpu_torch.data.io import normalize_image
 from decnet_tpu_torch.ops.detail import detail_masks
 from decnet_tpu_torch.ops.resize import interpolate
+from decnet_tpu_torch.parallel import mesh as mesh_lib
 
 TEX_GAINS = (120.0, 80.0, 130.0)
 BG_CELLS = 4
@@ -288,19 +289,23 @@ def device_batch_stream(seed: int, *, batch: int, h: int, w: int,
                         dtype: torch.dtype = torch.float32,
                         val: bool = False, device="cuda",
                         variant: str = "default",
-                        start_step: int = 0) -> Iterator[Dict]:
+                        start_step: int = 0, mesh=None) -> Iterator[Dict]:
     """Infinite iterator of batches of `variant`, batch N drawn from a
     generator seeded by (seed, N), so a stream regenerates its batches.
     `val=True` is a disjoint stream.  `start_step` k starts at batch k: a
-    resumed run sees the batches an unbroken one would."""
+    resumed run sees the batches an unbroken one would.  With `mesh`
+    (`parallel/mesh.py::Mesh`), each batch is this rank's images and rows
+    of the global draw (`shard_batch`), as JAX's stream generates into the
+    mesh's batch sharding: every rank draws the global batch alike."""
     gen = torch.Generator(device=device)
     step = start_step
     while True:
         gen.manual_seed(step_seed(seed, step, val))
-        yield make_device_batch(gen, batch=batch, h=h, w=w,
-                                max_disp=max_disp, scale=scale,
-                                levels=levels, thold=thold, dtype=dtype,
-                                device=device, variant=variant)
+        b = make_device_batch(gen, batch=batch, h=h, w=w,
+                              max_disp=max_disp, scale=scale,
+                              levels=levels, thold=thold, dtype=dtype,
+                              device=device, variant=variant)
+        yield b if mesh is None else mesh_lib.shard_batch(b, mesh)
         step += 1
 
 

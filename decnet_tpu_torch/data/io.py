@@ -21,7 +21,7 @@ than 1 (cv2 would rotate them), are refused with NotImplementedError.
 first bytes, not by its extension.
 
 PFM files (SceneFlow's disparities) are read and written in numpy
-(`read_pfm`, `write_pfm`) or decoded by `native/decnet_native.cc`
+(`read_pfm`, `write_pfm`) or decoded by `csrc/host/decnet_native.cc`
 (`decode_pfm`).  `pad_to_multiple` and `normalize_image` work on (B,3,H,W)
 tensors on any device; `pad_to_multiple_np` and `normalize_image_np` are
 their numpy twins for host samples (H,W[,C])."""
@@ -326,7 +326,7 @@ _PFM_HEADER = re.compile(rb"P([Ff])\s*(\S+)\s+(\S+)\s+(\S+)")
 
 
 def pfm_header(data: bytes) -> Tuple[int, int, int]:
-    """(h, w, c) of PFM bytes, parsed as `native/decnet_native.cc::
+    """(h, w, c) of PFM bytes, parsed as `csrc/host/decnet_native.cc::
     decnet_decode_pfm` parses them ("PF"/"Pf", then width, height and
     scale separated by whitespace)."""
     m = _PFM_HEADER.match(data)
@@ -342,7 +342,7 @@ def pfm_header(data: bytes) -> Tuple[int, int, int]:
 
 
 def decode_pfm(data: bytes, max_pixels: int = 1 << 26) -> np.ndarray:
-    """PFM bytes decoded by `native/decnet_native.cc`: (H,W) or (H,W,3)
+    """PFM bytes decoded by `csrc/host/decnet_native.cc`: (H,W) or (H,W,3)
     float32.  The header is read here first: the native decoder writes
     h*w*c floats without a bound, so the buffer is sized from the header,
     and a header claiming more than `max_pixels` values is refused."""

@@ -3,7 +3,7 @@ and the datasets' Gaussian-residual masks through the native library, the
 anisotropic pre-filter, and the wavelet masks in numpy.
 
 The Gaussian-pyramid residual masks come from
-`native/decnet_native.cc::decnet_detail_masks` (the reference's
+`csrc/host/decnet_native.cc::decnet_detail_masks` (the reference's
 `detailDetection`: per level blur, downsample, upsample, blur, sum
 |residual| over RGB, min-max normalise, threshold), bound here by ctypes on
 its own.  `ops/kernels/build.py` compiles that source with g++ into the

@@ -29,6 +29,15 @@ prediction enters the dynamic upsampling without gradient, and the
 variance never carries one (the reference computes it under no_grad).
 Batch norm follows the module's train/eval mode.  Inputs are NCHW; the
 output dict has the JAX model's keys, s2d stages' maps as full planes.
+
+On a mesh (`parallel/mesh.py`) each rank takes its images and rows of the
+inputs.  With four stages the 1/27 features are whole on every rank
+(`nn/feature.py`); the stage-0 volume and cost are this rank's slice of
+the hypotheses (disp) and run under `placed({"disp"})`, with fewer stages
+also its rows; the soft-argmin merges the slices, and the prediction and
+every finer map are this rank's rows, replicated over disp.  The quantile
+threshold of the learned masks gathers the two views' detail maps over
+tile, so that it is the unsplit one bit for bit.
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from decnet_tpu_torch.ops.matching import (candidate_availability,
 from decnet_tpu_torch.ops.regression import (disparity_regression,
                                              uniform_disp_samples)
 from decnet_tpu_torch.ops.resize import interpolate
+from decnet_tpu_torch.parallel import mesh
 
 OUTPUT_KEYS = ("preds", "dense", "sparse", "sparse_raw", "fusion",
                "soft_mask", "var", "residual", "left_details",
@@ -87,7 +97,8 @@ def binarise_detail(detail: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cut is strict, so a tied map keeps nothing."""
     d = detail.detach().float()
     if cfg.thold_mode == "quantile":
-        th = quantile_linear(d.reshape(d.shape[0], -1),
+        whole = mesh.gather_rows(d, d.dim() - 2)
+        th = quantile_linear(whole.reshape(d.shape[0], -1),
                              1.0 - cfg.detail_density)
         return (d > th.view((-1,) + (1,) * (d.dim() - 1))).float()
     return (d > cfg.thold).float()
@@ -101,8 +112,10 @@ def binarise_detail_pair(l_detail: torch.Tensor, r_detail: torch.Tensor,
     if cfg.thold_mode != "quantile":
         return binarise_detail(l_detail, cfg), binarise_detail(r_detail, cfg)
     B = l_detail.shape[0]
-    flat = torch.cat([l_detail.detach().reshape(B, -1),
-                      r_detail.detach().reshape(B, -1)], dim=1)
+    # the image's whole maps, so that the threshold is the unsplit one
+    lw, rw = (mesh.gather_rows(d.detach(), d.dim() - 2)
+              for d in (l_detail, r_detail))
+    flat = torch.cat([lw.reshape(B, -1), rw.reshape(B, -1)], dim=1)
     th = quantile_linear(flat, 1.0 - cfg.detail_density)
 
     def cut(d):
@@ -214,7 +227,15 @@ class DecNet(nn.Module):
         masks: per fine stage, coarsest first, (B,h_s,w_s) in {0,1} (not
         read with use_detail, whose heads make them).  `max_disp` may be
         overridden per call (a scene's disparity range); `ablate_sparse`
-        fuses the dense branch alone (fused = dense), the ablation eval."""
+        fuses the dense branch alone (fused = dense), the ablation eval.
+        On a mesh the inputs are this rank's images and rows, and so are
+        the outputs' maps (the module's docstring)."""
+        with mesh.placed(mesh.ROWS):
+            return self._forward(left, right, left_masks, right_masks,
+                                 max_disp, ablate_sparse)
+
+    def _forward(self, left, right, left_masks, right_masks, max_disp,
+                 ablate_sparse):
         cfg = self.cfg
         dtype = cfg.torch_dtype
         scale, ns = cfg.down_scale, cfg.num_stage
@@ -222,18 +243,34 @@ class DecNet(nn.Module):
         warp = functools.partial(warp_kernel.warp_with_grad,
                                  use_kernel=self.use_kernels)
 
+        self.replicas = mesh.replicas()
+        d0 = max_disp // scale ** (ns - 1)
+        if mesh.world_size() > 1:
+            mesh.check_divisible(left.shape[-2] * mesh.axis_size("tile"),
+                                 scale ** (ns - 1), d0)
         left_all = self.feature_extractor(left.to(dtype))
         right_all = self.feature_extractor(right.to(dtype))
         out: Dict[str, List[torch.Tensor]] = {k: [] for k in OUTPUT_KEYS}
-        out["left_feats"], out["right_feats"] = left_all, right_all
 
         lf, rf = left_all[0], right_all[0]
-        d0 = max_disp // scale ** (ns - 1)
-        B, _, H, W = lf.shape
-        vol = build_cost_volume_uniform(lf, rf, d0, cfg.cost_func)
-        cost = self.cost_reg(vol)
-        pred = disparity_regression(
-            cost, uniform_disp_samples(d0, B, H, W, device=lf.device))
+        # with four stages the 1/27 level is whole on every tile rank
+        level0 = mesh.WHOLE if ns == 4 else mesh.ROWS
+        with mesh.placed(level0 | {"disp"}):
+            n_disp = mesh.axis_size("disp")
+            s0, ns0 = mesh.axis_index("disp") * (d0 // n_disp), d0 // n_disp
+            B, _, H, W = lf.shape
+            vol = build_cost_volume_uniform(
+                mesh.enter(lf, "disp"), mesh.enter(rf, "disp"), d0,
+                cfg.cost_func, s0, ns0)
+            cost = self.cost_reg(vol)
+            pred = disparity_regression(
+                cost, uniform_disp_samples(d0, B, H, W, device=lf.device,
+                                           start=s0, count=ns0))
+        if ns == 4:
+            pred = mesh.to_rows(pred, 1)
+            lf, rf = mesh.to_rows(lf, 2), mesh.to_rows(rf, 2)
+        out["left_feats"] = [lf] + left_all[1:]
+        out["right_feats"] = [rf] + right_all[1:]
         out["preds"].append(pred)
         pre_left, pre_right = lf, rf
 

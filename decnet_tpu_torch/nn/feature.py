@@ -18,7 +18,13 @@ the skip and two convs (`deconv1_c0`, `deconv1_c1`): stage3 is then
 (B, 9C, H/3, W/3), channel (i*3 + j)*C + c holding phase (i, j).  With
 `s2d_mid` (s2d_stages 2) the 1/3-res level is also emitted in s2d form,
 `space_to_depth(stage2, 3)`: (B, 27C, H/9, W/9), a pure reshape with no
-parameters of its own; the decoder still reads it unpacked."""
+parameters of its own; the decoder still reads it unpacked.
+
+On a mesh every level is on row shards (`parallel/mesh.py`) but the 1/27
+one: conv2's rows are gathered over tile and conv3_1 ... fusion run on the
+whole image on every rank, as JAX's `coarse_spec` places them; deconv3
+takes this rank's rows of the result back.  The returned stage 0 is then
+whole, every finer level this rank's rows (packed rows in s2d form)."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -27,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from decnet_tpu_torch.nn.layers import ConvUnit, DeconvUnit, space_to_depth
+from decnet_tpu_torch.parallel import mesh
 
 
 class ASPP(nn.Module):
@@ -135,12 +142,14 @@ class FeatureExtractor(nn.Module):
         if ns > 2:
             res = conv2 = self.conv2_2(self.conv2_1(self.conv2_0(conv1)))
             if ns > 3:
-                conv3_1 = self.conv3_1(conv2)
-                conv3_2 = self.conv3_2b(self.conv3_2a(conv3_1))
-                ctx = self.ctx_fuse(self.aspp(conv3_1))
-                stage0 = self.fusion(torch.cat([conv3_2, ctx], dim=1))
+                with mesh.placed(mesh.WHOLE):
+                    conv3_1 = self.conv3_1(mesh.gather_rows(conv2, 2))
+                    conv3_2 = self.conv3_2b(self.conv3_2a(conv3_1))
+                    ctx = self.ctx_fuse(self.aspp(conv3_1))
+                    stage0 = self.fusion(torch.cat([conv3_2, ctx], dim=1))
                 levels.append(stage0)
-                res = self.deconv3(self.trans2(conv2), stage0)
+                res = self.deconv3(self.trans2(conv2),
+                                   mesh.to_rows(stage0, 2))
             levels.append(res)
             res = self.deconv2(self.trans1(conv1), res)
         skip0 = self.trans0(conv0)

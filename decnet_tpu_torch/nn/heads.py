@@ -2,7 +2,12 @@
 cost regularisation, dynamic upsampling, soft attention, refinement and
 the learned detail heads, with the space-to-depth twins of the last three
 (`...S2D`), which run a full-resolution stage at 1/r resolution on s2d
-planes: (B,r*r,h,w), channel i*r + j holding phase (i, j)."""
+planes: (B,r*r,h,w), channel i*r + j holding phase (i, j).
+
+On a mesh they run on row shards as they are: their convolutions and the
+dynamic upsampling's 3x3 neighbourhoods exchange halo rows
+(`nn/layers.py`), and the Refinement warp takes a neighbour row each side
+(`ops/kernels/warp.py`)."""
 from __future__ import annotations
 
 from typing import Callable, Sequence, Tuple
@@ -15,6 +20,7 @@ from decnet_tpu_torch.nn.layers import (ConvUnit, Conv3dUnit, DeconvUnit,
                                         pixel_shuffle, space_to_depth,
                                         unfold3x3_replicate, unfold_nonoverlap)
 from decnet_tpu_torch.ops.kernels import warp as warp_kernel
+from decnet_tpu_torch.parallel import mesh
 
 
 class CostRegNet(nn.Module):
@@ -36,6 +42,9 @@ class CostRegNet(nn.Module):
         self.conv2_2 = Conv3dUnit(f, 1, relu=False, dtype=dtype)
 
     def forward(self, vol: torch.Tensor) -> torch.Tensor:
+        """On a mesh, vol is this rank's S slice (and rows) of the volume,
+        under the caller's placement; the units exchange their halos."""
+        self.replicas = mesh.replicas()
         if self.conv_pre is not None:
             vol = F.conv3d(vol.to(self.dtype),
                            self.conv_pre.weight.to(self.dtype))

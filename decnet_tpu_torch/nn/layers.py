@@ -11,11 +11,21 @@ JAX.  With the `gn` norm (`norm_override("gn")` around the model's
 construction, as `ModelConfig.norm` asks) every unit's batch norm is a
 `GroupNorm` instead, as decnet_tpu/nn/layers.py::_make_norm makes it.
 Submodule names (`conv`, `bn`, `gn`) are what `weights.py` maps the flax
-names `Conv_0`/`ConvTranspose_0`, `BatchNorm_0` and `GroupNorm_0` onto."""
+names `Conv_0`/`ConvTranspose_0`, `BatchNorm_0` and `GroupNorm_0` onto.
+
+On a mesh (`parallel/mesh.py`) a unit works on its placement's shard: a
+convolution over a split axis (H over tile for 2D, S over disp and H over
+tile for 3D) pads the shard's inner edges with its neighbours' rows
+(`mesh.halo`) and its image edges with zeros, so that its output rows are
+the unsplit convolution's rows of this shard; the statistics of batch and
+group norm reduce over the placement's group; and each unit records how
+many ranks repeat its computation (`replicas`), by which the train step
+divides its gradients."""
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 
 import torch
 import torch.nn as nn
@@ -66,8 +76,16 @@ class GroupNorm(nn.Module):
         G = self.groups
         xf = x.float()
         g = xf.reshape(B, G, -1)
-        mean = g.mean(-1)
-        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
+        # per image: the sums span every split axis but data
+        split = [a for a in ("tile", "disp") if mesh.splits(a)]
+        if split:
+            sums = torch.stack([g.sum(-1), (g * g).sum(-1)])
+            sums = mesh.reduce_sum(sums, split, shared=True)
+            n = g.shape[-1] * math.prod(mesh.axis_size(a) for a in split)
+            mean, sq = sums[0] / n, sums[1] / n
+        else:
+            mean, sq = g.mean(-1), (g * g).mean(-1)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         shape = (B, C) + (1,) * (x.dim() - 2)
         mean = mean.repeat_interleave(C // G, dim=1).view(shape)
         inv = torch.rsqrt(var + self.eps).repeat_interleave(C // G, dim=1)
@@ -84,18 +102,20 @@ class _BatchStats(torch.autograd.Function):
     g_mean / n + g_var * 2 (x - mean) / n in f32 from it and casts once,
     as the cast's own backward would.
 
-    Under a process group of more than one process the statistics are
-    those of the global batch, as GSPMD makes them in JAX: the sums and
-    the count are all-reduced, the mean first, then the squared
-    deviations from it (two passes, as `var(unbiased=False)` takes them),
-    and the backward all-reduces g_mean and g_var, the sums of the ranks'
-    shares of the loss, before forming dx with the global count."""
+    On a mesh the statistics are those of the placement's whole shard
+    group (`mesh.stats_group`: data and the split axes), as GSPMD makes
+    them in JAX: the sums and the count are all-reduced over it, the mean
+    first, then the squared deviations from it (two passes, as
+    `var(unbiased=False)` takes them), and the backward all-reduces g_mean
+    and g_var, the sums of the members' shares of the loss, before forming
+    dx with the group's count."""
 
     @staticmethod
     def forward(ctx, x):
         xf = x.float()
         dims = [0] + list(range(2, x.dim()))
-        if mesh.world_size() == 1:
+        grp = ctx.grp = mesh.stats_group()
+        if grp is mesh.LOCAL:
             mean = xf.mean(dims)
             var = xf.var(dims, unbiased=False)
             ctx.n = x.numel() // x.shape[1]
@@ -103,10 +123,10 @@ class _BatchStats(torch.autograd.Function):
             shape = (1, -1) + (1,) * (x.dim() - 2)
             n = x.numel() // x.shape[1]
             s = mesh.all_reduce_sum(torch.cat([
-                xf.sum(dims), xf.new_tensor([float(n)])]))
+                xf.sum(dims), xf.new_tensor([float(n)])]), grp)
             mean = s[:-1] / s[-1]
             var = mesh.all_reduce_sum(
-                ((xf - mean.view(shape)) ** 2).sum(dims)) / s[-1]
+                ((xf - mean.view(shape)) ** 2).sum(dims), grp) / s[-1]
             ctx.n = s[-1]
         ctx.save_for_backward(x, mean)
         return mean, var
@@ -116,11 +136,11 @@ class _BatchStats(torch.autograd.Function):
         x, mean = ctx.saved_tensors
         n = ctx.n
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        if mesh.world_size() > 1:
+        if ctx.grp is not mesh.LOCAL:
             zero = torch.zeros_like(mean)
             g = mesh.all_reduce_sum(torch.cat([
                 zero if g_mean is None else g_mean.float(),
-                zero if g_var is None else g_var.float()]))
+                zero if g_var is None else g_var.float()]), ctx.grp)
             g_mean, g_var = g.split(mean.numel())
         g = torch.zeros((), device=x.device)
         if g_mean is not None:
@@ -188,19 +208,59 @@ class _Unit(nn.Module):
         conv, dt = self.conv, self.dtype
         w = conv.weight.to(dt)
         b = None if conv.bias is None else conv.bias.to(dt)
+        x = x.to(dt)
         if isinstance(conv, nn.ConvTranspose2d):
-            return F.conv_transpose2d(x.to(dt), w, b, conv.stride,
-                                      conv.padding, conv.output_padding,
-                                      conv.groups, conv.dilation)
-        return conv._conv_forward(x.to(dt), w, b)
+            if mesh.splits("tile") and (
+                    conv.kernel_size[0] > conv.stride[0]
+                    or conv.padding[0] or conv.output_padding[0]):
+                raise ValueError("a transposed convolution on row shards "
+                                 "needs kernel <= stride and no padding")
+            return F.conv_transpose2d(x, w, b, conv.stride, conv.padding,
+                                      conv.output_padding, conv.groups,
+                                      conv.dilation)
+        # the split spatial dims: (dim of x, index in the conv's tuples,
+        # mesh axis); 2D H over tile, 3D S over disp and H over tile
+        nsp = x.dim() - 2
+        split = [(2 + i, i, a) for i, a in
+                 (((0, "tile"),) if nsp == 2 else ((0, "disp"), (1, "tile")))
+                 if mesh.splits(a)]
+        if not split:
+            return conv._conv_forward(x, w, b)
+        pad = list(conv.padding)
+        for dim, i, axis in split:
+            x = _halo_for_conv(x, dim, conv.kernel_size[i], conv.stride[i],
+                               conv.dilation[i], pad[i], axis)
+            pad[i] = 0
+        fn = F.conv2d if nsp == 2 else F.conv3d
+        return fn(x, w, b, conv.stride, tuple(pad), conv.dilation,
+                  conv.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self.replicas = mesh.replicas()
         x = self._conv(x)
         if self.bn is not None:
             x = self.bn(x)
         if self.gn is not None:
             x = self.gn(x)
         return F.relu(x) if self.relu else x
+
+
+def _halo_for_conv(x: torch.Tensor, dim: int, k: int, s: int, d: int,
+                   p: int, axis: str) -> torch.Tensor:
+    """x's shard of L rows along `dim` with the rows a (k, stride s,
+    dilation d, padding p) convolution's L / s output rows of this shard
+    read beyond it: p before, and after as many as the last output row
+    reaches past the shard (the neighbours' rows, or zeros at the image's
+    edge).  L must divide by s, so that every shard's outputs start where
+    the unsplit convolution's do."""
+    L = x.shape[dim]
+    if L % s:
+        raise ValueError(f"a shard of {L} rows does not divide by stride "
+                         f"{s} ({mesh.DIVISIBILITY})")
+    hi = (L // s - 1) * s - p + d * (k - 1) - (L - 1)
+    x = mesh.halo(x, dim, p, max(hi, 0), axis)
+    # a last output row that stops short of the shard's end
+    return x if hi >= 0 else x.narrow(dim, 0, p + L + hi)
 
 
 class ConvUnit(_Unit):
@@ -250,9 +310,15 @@ def unfold_nonoverlap(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def unfold3x3_replicate(x: torch.Tensor) -> torch.Tensor:
     """3x3 neighbourhoods of (B,H,W) with edge replication -> (B,9,H,W),
-    channel ki*3 + kj (the reference's F.unfold(ReplicationPad2d(1)(d)))."""
+    channel ki*3 + kj (the reference's F.unfold(ReplicationPad2d(1)(d))).
+    On row shards the edge is replicated at the image's edge only: a
+    shard's inner edge takes its neighbour's row."""
     H, W = x.shape[-2:]
-    xp = F.pad(x[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    if mesh.splits("tile"):
+        xp = mesh.halo(x, 1, 1, 1, "tile", edge="replicate")
+        xp = F.pad(xp[:, None], (1, 1, 0, 0), mode="replicate")[:, 0]
+    else:
+        xp = F.pad(x[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
     return torch.stack([xp[:, i:i + H, j:j + W]
                         for i in range(3) for j in range(3)], dim=1)
 

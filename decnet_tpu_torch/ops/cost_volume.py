@@ -45,13 +45,19 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
 
 
 def build_cost_volume_uniform(left: torch.Tensor, right: torch.Tensor,
-                              max_disp: int,
-                              cost_func: str = "cor") -> torch.Tensor:
+                              max_disp: int, cost_func: str = "cor",
+                              start: int = 0,
+                              count: int = None) -> torch.Tensor:
     """left/right (B,C,H,W) -> (B,C[*2],S,H,W) for d = 0..max_disp-1, the
-    right volume by `warp_volume_uniform` in the features' dtype."""
+    right volume by `warp_volume_uniform` in the features' dtype.  With
+    `start` and `count`, only the hypotheses start .. start + count - 1: a
+    disp rank's slice of S, built from the whole features with no
+    communication."""
     W = left.shape[-1]
-    right_vol = warp_volume_uniform(right, max_disp)
+    count = max_disp - start if count is None else count
+    right_vol = warp_volume_uniform(right, max_disp, start, count)
     in_range = (torch.arange(W, device=left.device)[None, :]
-                >= torch.arange(max_disp, device=left.device)[:, None])
+                >= torch.arange(start, start + count,
+                                device=left.device)[:, None])
     left_vol = left[:, :, None] * in_range[:, None, :].to(left.dtype)
     return _cost(left_vol, right_vol, cost_func)

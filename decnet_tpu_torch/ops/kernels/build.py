@@ -5,12 +5,13 @@ Each `csrc/<name>.cu` exposes `extern "C"` launchers that return a
 cudaError_t.  It is compiled at first use, for sm_90a, into a shared
 library under `build/decnet_tpu_torch/` at the root of the checkout (listed
 in .gitignore).  The host libraries are compiled by g++ for this host's
-baseline instruction set: `decnet_native` is `native/decnet_native.cc`
-(the prebuilt `native/libdecnet_native.so` was compiled with
--march=native elsewhere and is not loaded), `png_unfilter` is
-`csrc/host/png_unfilter.cc`, `jpeg_decode` is `csrc/host/jpeg_decode.cc`.  A library's file name
-carries a hash of its sources and flags, so an edited source is rebuilt
-and a stale library never loads.  Nothing here touches PyTorch's C++
+baseline instruction set: `decnet_native` is `csrc/host/decnet_native.cc`
+(the port's own copy of the JAX package's `native/decnet_native.cc`,
+which it neither builds nor loads), `png_unfilter` is
+`csrc/host/png_unfilter.cc`, `jpeg_decode` is `csrc/host/jpeg_decode.cc`.
+Every source compiled here lies under `decnet_tpu_torch/`.  A library's
+file name carries a hash of its sources and flags, so an edited source is
+rebuilt and a stale library never loads.  Nothing here touches PyTorch's C++
 headers: a build takes seconds.
 """
 from __future__ import annotations
@@ -34,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_LIB = "decnet_native"
 PNG_LIB = "png_unfilter"
 JPEG_LIB = "jpeg_decode"
-HOST_SOURCES = {HOST_LIB: ROOT / "native" / "decnet_native.cc",
+HOST_SOURCES = {HOST_LIB: CSRC_DIR / "host" / "decnet_native.cc",
                 PNG_LIB: CSRC_DIR / "host" / "png_unfilter.cc",
                 JPEG_LIB: CSRC_DIR / "host" / "jpeg_decode.cc"}
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-pthread")

@@ -7,12 +7,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from decnet_tpu_torch.parallel import mesh
+
 
 def uniform_disp_samples(max_disp: int, batch: int, height: int, width: int,
-                         device=None) -> torch.Tensor:
-    """arange(max_disp) broadcast to (B,S,H,W), f32."""
-    d = torch.arange(max_disp, dtype=torch.float32, device=device)
-    return d[None, :, None, None].expand(batch, max_disp, height, width)
+                         device=None, start: int = 0,
+                         count: int = None) -> torch.Tensor:
+    """arange(max_disp) broadcast to (B,S,H,W), f32; with `start` and
+    `count`, the hypotheses start .. start + count - 1 of them (a disp
+    rank's slice)."""
+    count = max_disp - start if count is None else count
+    d = torch.arange(start, start + count, dtype=torch.float32,
+                     device=device)
+    return d[None, :, None, None].expand(batch, count, height, width)
 
 
 def adaptive_disp_samples(disparity: torch.Tensor, max_disp: int,
@@ -38,6 +45,22 @@ def adaptive_disp_samples(disparity: torch.Tensor, max_disp: int,
 def disparity_regression(cost: torch.Tensor,
                          disp_samples: torch.Tensor) -> torch.Tensor:
     """Softmax over S, then the expected disparity: (B,S,H,W) -> (B,H,W),
-    in f32 whatever the cost's dtype."""
-    p = torch.softmax(cost.float(), dim=1)
-    return (p * disp_samples.float()).sum(dim=1)
+    in f32 whatever the cost's dtype.
+
+    With S split over the mesh's disp axis (`mesh.splits("disp")`), each
+    rank holds its slice of cost and samples, and the softmax is merged
+    from partial sums as JAX's psum does: the maximum over every slice (a
+    constant shift, without gradient), then the sums of e = exp(c - max)
+    and of e * d over the slices (`mesh.reduce_sum`, whose backward is
+    exact: every disp rank holds the whole cotangent of the result, which
+    it returns replicated over disp)."""
+    c = cost.float()
+    d = disp_samples.float()
+    if not mesh.splits("disp"):
+        p = torch.softmax(c, dim=1)
+        return (p * d).sum(dim=1)
+    m = mesh.reduce_max(c.amax(dim=1), ("disp",))
+    e = torch.exp(c - m[:, None])
+    z = mesh.reduce_sum(e.sum(dim=1), ("disp",))
+    n = mesh.reduce_sum((e * d).sum(dim=1), ("disp",))
+    return n / z

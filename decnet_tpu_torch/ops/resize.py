@@ -3,13 +3,20 @@ matrix products, one per axis — the port of decnet_tpu/ops/resize.py.
 
 The tap matrices are built in numpy exactly as the JAX package builds them
 (bicubic with a=-0.75, edge taps clamped), so both packages apply the same
-weights; F.interpolate is not used."""
+weights; F.interpolate is not used.
+
+On row shards (`mesh.splits("tile")`) a resize along H applies the global
+tap matrix's rows of this shard to the shard and the neighbour rows they
+reach (`row_taps`, `mesh.halo`): no rank gathers the image."""
 from __future__ import annotations
 
 import functools
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from decnet_tpu_torch.parallel import mesh
 
 
 def _cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -40,13 +47,50 @@ def _resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
     return mat
 
 
+_ROW_TAPS: Dict[tuple, Tuple[np.ndarray, int, int]] = {}
+
+
+def row_taps(key: tuple, make: Callable[[], np.ndarray]
+             ) -> Tuple[np.ndarray, int, int]:
+    """(taps, lo, hi) of this tile rank for the global (out, in) matrix
+    that `make` builds (cached under `key`): taps (out/tile, lo + in/tile +
+    hi) applies to the rank's rows with lo rows before and hi after, the
+    largest reach of any shard (every rank exchanges the same halo)."""
+    n, t = mesh.axis_size("tile"), mesh.axis_index("tile")
+    k = key + (n, t)
+    if k not in _ROW_TAPS:
+        M = make()
+        O, I = M.shape
+        o, L = O // n, I // n
+        lo = hi = 0
+        for j in range(n):
+            cols = np.nonzero(np.any(M[j * o:(j + 1) * o] != 0, axis=0))[0]
+            if cols.size:
+                lo = max(lo, j * L - int(cols[0]))
+                hi = max(hi, int(cols[-1]) + 1 - (j + 1) * L)
+        taps = np.zeros((o, lo + L + hi), np.float32)
+        a, b = t * L - lo, (t + 1) * L + hi
+        ca, cb = max(a, 0), min(b, I)
+        taps[:, ca - a:cb - a] = M[t * o:(t + 1) * o, ca:cb]
+        _ROW_TAPS[k] = (taps, lo, hi)
+    return _ROW_TAPS[k]
+
+
 def interpolate(img: torch.Tensor, out_h: int, out_w: int,
                 mode: str) -> torch.Tensor:
-    """Resize (B,C,H,W) to (out_h, out_w), torch semantics."""
+    """Resize (B,C,H,W) to (out_h, out_w), torch semantics; on row shards
+    H and out_h are this rank's rows of the image's."""
     H, W = img.shape[-2:]
     if H != out_h:
-        my = torch.from_numpy(_resize_matrix(H, out_h, mode)).to(
-            img.device, img.dtype)
+        if mesh.splits("tile"):
+            n = mesh.axis_size("tile")
+            taps, lo, hi = row_taps(
+                ("resize", H * n, out_h * n, mode),
+                lambda: _resize_matrix(H * n, out_h * n, mode))
+            img = mesh.halo(img, 2, lo, hi)
+        else:
+            taps = _resize_matrix(H, out_h, mode)
+        my = torch.from_numpy(taps).to(img.device, img.dtype)
         img = torch.einsum("oh,bchw->bcow", my, img)
     if W != out_w:
         mx = torch.from_numpy(_resize_matrix(W, out_w, mode)).to(

@@ -11,9 +11,12 @@ matrix products with constant tap matrices."""
 from __future__ import annotations
 
 import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from decnet_tpu_torch.parallel import mesh
 
 
 def grid_sample_bilinear(img: torch.Tensor, x: torch.Tensor,
@@ -52,20 +55,40 @@ def grid_sample_normalized(img: torch.Tensor,
     return grid_sample_bilinear(img, x, y)
 
 
-def warp_by_disparity(img: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+def warp_by_disparity(img: torch.Tensor, disp: torch.Tensor,
+                      rows: Optional[Tuple[int, int, int]] = None
+                      ) -> torch.Tensor:
     """Sample right-view `img` (B,C,H,W) at ``x - disp`` (disp (B,H,W)):
     position ``(x - d) * W/(W-1) - 0.5``, rows ``y * H/(H-1) - 0.5``, as the
     reference's (W-1)/2 grid normalisation followed by align_corners=False
-    grid_sample gives."""
-    B, C, H, W = img.shape
+    grid_sample gives.  On a row shard, `rows` = (Hg, row0, halo): disp is
+    rows [row0, row0 + H) of an image of Hg rows, and img holds rows
+    [row0 - halo, row0 + H + halo), zeros beyond the image
+    (`with_row_halo`)."""
+    B, H, W = disp.shape
+    Hg, row0, halo = rows or (H, 0, 0)
     disp = disp.float()
     xs = torch.arange(W, dtype=torch.float32, device=disp.device)
-    ys = torch.arange(H, dtype=torch.float32, device=disp.device)
+    ys = torch.arange(row0, row0 + H, dtype=torch.float32,
+                      device=disp.device)
     gx = (xs[None, None, :] - disp) / ((W - 1.0) / 2.0) - 1.0
     x = ((gx + 1.0) * W - 1.0) / 2.0
     y = ys[None, :, None].expand(disp.shape)
-    yy = y * (H / (H - 1.0)) - 0.5
+    yy = y * (Hg / (Hg - 1.0)) - 0.5
+    if rows is not None:
+        yy = yy - float(row0 - halo)
     return grid_sample_bilinear(img, x, yy)
+
+
+def with_row_halo(img: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[Tuple[int, int, int]]]:
+    """On row shards (`mesh.splits("tile")`), img with one neighbour row
+    each side (zeros at the image's edge) and its rows (Hg, row0, 1); else
+    (img, None)."""
+    if not mesh.splits("tile"):
+        return img, None
+    row0, Hg = mesh.rows_of(img.shape[-2])
+    return mesh.halo(img, 2, 1, 1, "tile"), (Hg, row0, 1)
 
 
 def warp_volume_by_disparity(img: torch.Tensor,
@@ -106,13 +129,27 @@ def _uniform_tap_matrices(H: int, W: int, max_disp: int):
     return Ry, np.stack(cols)
 
 
-def warp_volume_uniform(img: torch.Tensor, max_disp: int) -> torch.Tensor:
+def warp_volume_uniform(img: torch.Tensor, max_disp: int, start: int = 0,
+                        count: int = None) -> torch.Tensor:
     """Warped right-feature volume (B,C,S,H,W) for d = 0..max_disp-1 as
-    ``Ry @ img @ Mx[d]^T``, accumulated in f32 and returned in img's dtype."""
+    ``Ry @ img @ Mx[d]^T``, accumulated in f32 and returned in img's dtype;
+    with `start` and `count`, for d = start .. start + count - 1 only.  On
+    row shards Ry is the global matrix's rows of this shard, applied to
+    the shard and the neighbour rows they reach (`resize.row_taps`)."""
+    from decnet_tpu_torch.ops.resize import row_taps
     B, C, H, W = img.shape
-    Ry, Mx = _uniform_tap_matrices(H, W, max_disp)
+    count = max_disp - start if count is None else count
+    x = img.float()
+    if mesh.splits("tile"):
+        Hg = H * mesh.axis_size("tile")
+        Ry, lo, hi = row_taps(("warp_rows", Hg),
+                              lambda: _uniform_tap_matrices(Hg, W, 1)[0])
+        x = mesh.halo(x, 2, lo, hi)
+    else:
+        Ry = _uniform_tap_matrices(H, W, max_disp)[0]
+    Mx = _uniform_tap_matrices(H, W, max_disp)[1][start:start + count]
     Ry = torch.from_numpy(Ry).to(img.device)
-    Mx = torch.from_numpy(Mx).to(img.device)
-    tmp = torch.einsum("ih,bchw->bciw", Ry, img.float())
+    Mx = torch.from_numpy(np.ascontiguousarray(Mx)).to(img.device)
+    tmp = torch.einsum("ih,bchw->bciw", Ry, x)
     out = torch.einsum("sxw,bchw->bcshx", Mx, tmp)
     return out.to(img.dtype)

@@ -1,10 +1,15 @@
-"""One data-parallel train step held to a single-process replay — the twin
-of __graft_entry__.py::dryrun_multichip and scripts/two_process_train.py.
+"""One train step split over a (data, tile, disp) mesh of processes, held
+to a single-process replay — the twin of __graft_entry__.py::
+dryrun_multichip and scripts/two_process_train.py.
 
-`dryrun_multichip(n, device)` starts n processes (the `spawn` start
-method), joins them into one process group, and gives each only its rows
-of the fixed batch of scripts/two_process_train.py (B=4 of 54x54, seed
-123).  Each takes one full train step of the dry run's configuration
+`dryrun_multichip(n, device)` picks the mesh as JAX's dry run does (tile 2
+when n is even, then disp 2 when 2 * tile divides n, data the rest: 2 ->
+1x2x1, 4 -> 1x2x2, 8 -> 2x2x2), starts n processes (the `spawn` start
+method), joins them into one process group, and gives each only its part
+(images over data, rows over tile) of the fixed batch of
+scripts/two_process_train.py (B=4 of 54x54, seed 123; the stage-0 volume
+has S = 2 hypotheses, one a disp rank).  Each takes one full train step
+of the dry run's configuration
 (__graft_entry__.py's flagship model at max_disp 54, base_channels 4, f32,
 learned quantile detail heads, the learned temperature 3.0, window 12,
 cand_fallback): the loss and its gradients with global batch statistics,
@@ -13,9 +18,10 @@ then replays the same step alone on the whole batch, and the two must
 agree as JAX's dry run requires: loss 2e-5 and grad norm 2e-4 relative
 (in f32 without TF32 on the card).
 
-`data_parallel_step` is the machinery, for any config, weights and batch:
-`chip_smoke.py` drives it with the faithful recipe on the card.  Every
-process has a deadline: a rendezvous that hangs fails instead of waiting.
+`data_parallel_step` is the machinery, for any config (its `mesh`),
+weights and batch: `chip_smoke.py` drives it with the faithful recipe on
+the card.  Every process has a deadline: a rendezvous that hangs fails
+instead of waiting.
 
 Usage:
   python -m decnet_tpu_torch.parallel.dryrun [N] [--device cuda|cpu]
@@ -35,7 +41,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from decnet_tpu_torch.config import Config, ModelConfig
+from decnet_tpu_torch.config import Config, MeshConfig, ModelConfig
 from decnet_tpu_torch.device import resolve_device
 from decnet_tpu_torch.models.decnet import DecNet
 from decnet_tpu_torch.parallel import mesh
@@ -43,6 +49,11 @@ from decnet_tpu_torch.train.step import create_train_state, train_step
 
 B, H, W, SEED = 4, 54, 54, 123
 LOSS_RTOL, GRAD_NORM_RTOL = 2e-5, 2e-4
+# every parameter's gradient norm against the replay's: a gradient summed
+# over an idle mesh axis comes back 2x.  A leaf whose norm is below
+# LEAF_FLOOR of the whole gradient's is zero up to rounding (a batch-norm
+# bias ahead of a mean-free path), and its ratio is noise.
+LEAF_BAND, LEAF_FLOOR = (0.9, 1.1), 1e-7
 DEADLINE_S = 600.0
 # __graft_entry__.py::_flagship_config as its dry run changes it (:80-95)
 DRYRUN_MODEL = dict(max_disp=54, base_channels=4, num_stage=4, down_scale=3,
@@ -58,10 +69,18 @@ DRYRUN_MODEL = dict(max_disp=54, base_channels=4, num_stage=4, down_scale=3,
 HEAD_SCALE, REFINE_SCALE = 0.05, 0.01
 
 
-def dryrun_config() -> Config:
+def mesh_for(n: int) -> MeshConfig:
+    """The mesh of JAX's dry run on n devices (__graft_entry__.py:96-99)."""
+    tile = 2 if n % 2 == 0 and n >= 2 else 1
+    disp = 2 if n % (tile * 2) == 0 and n >= tile * 2 else 1
+    return MeshConfig(data=n // (tile * disp), tile=tile, disp=disp)
+
+
+def dryrun_config(n: int = 1) -> Config:
     cfg = Config()
     cfg.model = ModelConfig(**DRYRUN_MODEL)
     cfg.train.batch_size = B
+    cfg.mesh = mesh_for(n)
     return cfg
 
 
@@ -117,13 +136,15 @@ def kernel_counters() -> Dict:
 
 def take_steps(cfg: Config, state: Dict[str, torch.Tensor], batch: Dict,
                device, steps: int = 1, full: bool = True) -> Dict:
-    """`steps` train steps from `state` on `batch` (on `device`), under
-    whatever process group this process is in.  Returns the first step's
-    loss, grad norm and (with `full`) its clipped gradient (flat, f32)
-    and the state after it; every step's wall ms; the kernel launches of
-    all the steps; the peak device memory; and the host seconds spent in
-    all-reduce calls over the later steps (on the card these include the
-    wait for the work queued before each call)."""
+    """`steps` train steps from `state` on `batch` (on `device`, this
+    rank's part), under whatever process group and mesh this process is
+    in.  Returns the first step's loss, grad norm and (with `full`) its
+    clipped gradient (flat, f32) and the state after it; every step's wall
+    ms; the kernel launches of all the steps; the peak device memory; the
+    collectives by kind, [calls, host seconds], of the first step
+    (`collectives_first`) and of the later ones (`collectives`; on the card
+    their seconds include the wait for the work queued before each call),
+    and the host seconds and calls of the later steps' all-reduces."""
     dev = torch.device(device)
     model = DecNet(cfg.model)
     model.load_state_dict(state)
@@ -134,37 +155,32 @@ def take_steps(cfg: Config, state: Dict[str, torch.Tensor], batch: Dict,
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    real_all_reduce, spent = dist.all_reduce, [0.0, 0]
-
-    def timed_all_reduce(*a, **k):
-        t = time.perf_counter()
-        try:
-            return real_all_reduce(*a, **k)
-        finally:
-            spent[0] += time.perf_counter() - t
-            spent[1] += 1
+    mesh.reset_counts()
     out = {"step_ms": []}
-    try:
-        for i in range(steps):
-            sync()
-            t = time.perf_counter()
-            logs = train_step(st, batch, cfg)
-            sync()
-            out["step_ms"].append((time.perf_counter() - t) * 1e3)
-            if i == 0:
-                out["loss"] = float(logs["total"])
-                out["grad_norm"] = float(logs["grad_norm"])
-                if full:
-                    out["grads"] = torch.cat([p.grad.float().flatten()
-                                              for p in model.parameters()]
-                                             ).cpu().numpy()
-                    out["state"] = {k: v.float().cpu().numpy()
-                                    for k, v in model.state_dict().items()}
-                dist.all_reduce = timed_all_reduce
-    finally:
-        dist.all_reduce = real_all_reduce
+    for i in range(steps):
+        sync()
+        t = time.perf_counter()
+        logs = train_step(st, batch, cfg)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            out["loss"] = float(logs["total"])
+            out["grad_norm"] = float(logs["grad_norm"])
+            if full:
+                out["grads"] = torch.cat([p.grad.float().flatten()
+                                          for p in model.parameters()]
+                                         ).cpu().numpy()
+                out["leaf_norms"] = {k: float(p.grad.double().norm())
+                                     for k, p in model.named_parameters()}
+                out["state"] = {k: v.float().cpu().numpy()
+                                for k, v in model.state_dict().items()}
+            out["collectives_first"] = {k: list(v) for k, v in
+                                        mesh.COUNTS.items()}
+            mesh.reset_counts()
+    out["collectives"] = {k: list(v) for k, v in mesh.COUNTS.items()}
     out["launches"] = {k: c.launches for k, c in counters.items()}
-    out["all_reduce_s"], out["all_reduce_calls"] = spent
+    out["all_reduce_calls"], out["all_reduce_s"] = out["collectives"].get(
+        "all_reduce", [0, 0.0])
     out["peak_mem_mb"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
                           if dev.type == "cuda" else None)
     if mesh.world_size() > 1:
@@ -175,6 +191,21 @@ def take_steps(cfg: Config, state: Dict[str, torch.Tensor], batch: Dict,
         dist.broadcast(ref, 0)
         out["rank_max_abs_diff"] = float((flat - ref).abs().max())
     return out
+
+
+def leaf_outliers(got: Dict[str, float], want: Dict[str, float]
+                  ) -> Dict[str, float]:
+    """{leaf: norm ratio} of the leaves whose gradient norm in `got` is
+    outside LEAF_BAND of the norm in `want` (leaves above LEAF_FLOOR)."""
+    total = sum(v * v for v in want.values()) ** 0.5
+    bad = {}
+    for k, w in want.items():
+        if w <= LEAF_FLOOR * total and got[k] <= LEAF_FLOOR * total:
+            continue
+        ratio = got[k] / w if w > 0 else float("inf")
+        if not LEAF_BAND[0] <= ratio <= LEAF_BAND[1]:
+            bad[k] = ratio
+    return bad
 
 
 def free_port() -> int:
@@ -257,11 +288,12 @@ def _dp_worker(cfg: Config, state: Dict, batch: Dict, device: str,
                tf32_flags: Tuple[bool, bool]) -> Dict:
     set_tf32(tf32_flags)
     dev = mesh.init_distributed(device, backend)
-    out = take_steps(cfg, state, rows(batch, mesh.rank(), mesh.world_size(),
-                                      dev),
-                     dev, steps, full=mesh.is_main())
+    m = mesh.make_mesh(cfg.mesh)
+    part = mesh.shard_batch(rows(batch, 0, 1, dev), m)
+    out = take_steps(cfg, state, part, dev, steps, full=mesh.is_main())
     out["device"] = str(dev)
     out["backend"] = dist.get_backend()
+    out["position"] = m.position()
     return out
 
 
@@ -269,8 +301,9 @@ def data_parallel_step(n: int, cfg: Config, state: Dict, batch: Dict,
                        device="cuda", backend: Optional[str] = None,
                        steps: int = 1, threads: int = 0,
                        deadline_s: float = DEADLINE_S) -> List[Dict]:
-    """`take_steps` in n processes of one group, each on its rows of
-    `batch` (CPU tensors, the global batch), from the same `state`.
+    """`take_steps` in n processes of one group on the mesh cfg.mesh, each
+    on its part of `batch` (CPU tensors, the global batch: its images over
+    data, its rows over tile, `mesh.shard_batch`), from the same `state`.
     Ranks share the cards in turn, so n beyond the card count needs gloo
     (the default then; nccl otherwise on the card, gloo on the CPU).
     `threads` caps each process's CPU threads; the processes use TF32 as
@@ -283,24 +316,28 @@ def data_parallel_step(n: int, cfg: Config, state: Dict, batch: Dict,
                                  steps, tf32()), threads, deadline_s)
 
 
-def dryrun_multichip(n: int = 2, device="cuda", threads: int = 0) -> Dict:
+def dryrun_multichip(n: int = 2, device="cuda", threads: int = 0,
+                     mesh_cfg: Optional[MeshConfig] = None) -> Dict:
     """One step of the dry run's config on n processes against this
     process's replay on the whole batch (module docstring), in f32
     without TF32 on the card (TF32 rounds each split of the batch its own
     way, ~1e-3); prints JAX's line and returns both results.  Raises when
-    they disagree."""
+    they disagree.  `mesh_cfg` replaces JAX's choice of mesh."""
     dev = resolve_device(device)
-    cfg = dryrun_config()
-    if B % n:
+    cfg = dryrun_config(n)
+    if mesh_cfg is not None:
+        cfg.mesh = mesh_cfg
+    if B % cfg.mesh.data:
         raise ValueError(f"the dry run's batch of {B} does not split over "
-                         f"{n} processes")
+                         f"{cfg.mesh.data} data ranks")
     state, batch = fresh_state(cfg), build_batch()
     flags = tf32()
     set_tf32((False, False))
     try:
         ranks = data_parallel_step(n, cfg, state, batch, dev.type,
                                    threads=threads)
-        replay = take_steps(cfg, state, rows(batch, 0, 1, dev), dev)
+        replay = take_steps(dryrun_config(), state, rows(batch, 0, 1, dev),
+                            dev)
     finally:
         set_tf32(flags)
     total, gnorm = ranks[0]["loss"], ranks[0]["grad_norm"]
@@ -315,8 +352,12 @@ def dryrun_multichip(n: int = 2, device="cuda", threads: int = 0) -> Dict:
                                rtol=GRAD_NORM_RTOL,
                                err_msg=f"{n}-process grad_norm {gnorm} != "
                                f"single-process {replay['grad_norm']}")
+    bad = leaf_outliers(ranks[0]["leaf_norms"], replay["leaf_norms"])
+    if bad:
+        raise AssertionError(f"{n}-process gradient norms outside "
+                             f"{LEAF_BAND} of the replay's: {bad}")
     print(f"dryrun_multichip({n}): mesh="
-          f"{mesh.make_mesh(world=n).shape} loss={total:.4f} "
+          f"{mesh.make_mesh(cfg.mesh, world=n).shape} loss={total:.4f} "
           f"(single-process replay {replay['loss']:.4f}) "
           f"grad_norm={gnorm:.4f} (replay {replay['grad_norm']:.4f}) OK",
           flush=True)

@@ -7,8 +7,11 @@ chamfer_loss, multi_stage_chamfer).  Maps are (B,H,W), features NCHW.
 
 Every mean is over the global batch, as JAX's jitted step takes it: under
 a process group each rank returns its share, its local sum over the
-all-reduced count (`parallel/mesh.py`), and the shares sum to the loss of
-the whole batch."""
+count all-reduced over data x tile (`parallel/mesh.py::global_sum`), and
+the shares of the data x tile ranks sum to the loss of the whole batch
+(each disp rank holds the same share).  On row shards the maps are this
+rank's rows: the sky rows are counted from the image's top, and the
+resizes and warps exchange halo rows."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -17,7 +20,7 @@ import torch
 
 from decnet_tpu_torch.config import LossConfig
 from decnet_tpu_torch.ops.resize import downsample_gt, interpolate
-from decnet_tpu_torch.ops.warp import warp_by_disparity
+from decnet_tpu_torch.ops.warp import warp_by_disparity, with_row_halo
 from decnet_tpu_torch.parallel import mesh
 
 
@@ -69,8 +72,9 @@ def multi_stage_uploss(outputs: Dict, gt: torch.Tensor, cfg: LossConfig,
         cur_gt = gts[stage]
         valid = (cur_gt > 0) & (cur_gt < max_disp / down)
         if cfg.if_overmask:
-            sky = torch.arange(cur_gt.shape[1], device=gt.device) \
-                < int(108 // down)
+            row0, _ = mesh.rows_of(cur_gt.shape[1])
+            sky = torch.arange(row0, row0 + cur_gt.shape[1],
+                               device=gt.device) < int(108 // down)
             valid = valid & ~sky[None, :, None]
         w = cfg.weights[stage]
 
@@ -175,7 +179,8 @@ def lr_consistency_loss(preds: Sequence[torch.Tensor],
     weights[stage].  Features are NCHW lists, coarsest first."""
     total = torch.zeros((), device=preds[0].device)
     for stage, pred in enumerate(preds):
-        warped = warp_by_disparity(right_feats[stage], pred)
+        img, rows = with_row_halo(right_feats[stage])
+        warped = warp_by_disparity(img, pred, rows)
         diff = (left_feats[stage].float() - warped.float()) ** 2
         total = total + weights[stage] * mesh.global_mean(diff.sum(dim=1))
     return total

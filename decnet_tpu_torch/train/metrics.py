@@ -13,7 +13,7 @@ def epe_and_d1(pred: torch.Tensor, gt: torch.Tensor, max_disp: float
     """(epe, d1): mean |pred - gt| over 0 < gt < max_disp, and the
     percentage of those pixels whose error is >= 3 px and >= 5% of gt.
     Under a process group, of every process's pixels: the sums and the
-    count are all-reduced."""
+    count are all-reduced over data x tile."""
     valid = (gt > 0) & (gt < max_disp)
     err = (pred - gt).abs()
     err_sum = torch.where(valid, err, 0.0).sum()
@@ -21,7 +21,8 @@ def epe_and_d1(pred: torch.Tensor, gt: torch.Tensor, max_disp: float
     ok_sum, cnt = (valid & ok).sum(), valid.sum()
     if mesh.world_size() > 1:
         err_sum, ok_sum, cnt = mesh.all_reduce_sum(
-            torch.stack([err_sum.float(), ok_sum.float(), cnt.float()]))
+            torch.stack([err_sum.float(), ok_sum.float(), cnt.float()]),
+            mesh.pixel_group())
     cnt = cnt.clamp(min=1)
     epe = err_sum / cnt
     d1 = 100.0 - ok_sum / cnt * 100.0

@@ -69,7 +69,13 @@ def compute_loss(out: Dict, batch: Dict, cfg: Config
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss dispatcher: the configured loss type's total and terms;
     with learned detail heads and masks in the batch (any type but
-    upmaskloss), plus alpha times the detail mask loss and its terms."""
+    upmaskloss), plus alpha times the detail mask loss and its terms.  On
+    a mesh, of this rank's rows (`mesh.ROWS`)."""
+    with mesh.placed(mesh.ROWS):
+        return _compute_loss(out, batch, cfg)
+
+
+def _compute_loss(out, batch, cfg):
     mcfg, lcfg = cfg.model, cfg.loss
     loss_type = check_loss_type(cfg)
     gt = batch["gt"]
@@ -111,13 +117,18 @@ def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
     parameter's gradient, zeros for a parameter the loss does not reach.
     Under a process group both are summed over the processes (each rank's
     loss is its share of the global batch's, `parallel/mesh.py`), so every
-    rank holds the global batch's loss and gradient."""
+    rank holds the global batch's loss and gradient: the logs over data x
+    tile, and each gradient over the axes its computation was split on
+    (`mesh.reduce_gradients`)."""
     model.train(not freeze_bn)
     for p in model.parameters():
         p.grad = None
     args = (batch["left"], batch["right"], batch.get("left_masks"),
             batch.get("right_masks"))
     if packed is not None:
+        if mesh.axis_size("tile") * mesh.axis_size("disp") > 1:
+            raise ValueError("the packed twin's step is not split over "
+                             "tile or disp (ROADMAP.md section 3)")
         if not freeze_bn:
             raise ValueError("training-mode repack requires freeze_bn "
                              "(packed BN batch statistics are per-phase)")
@@ -135,8 +146,8 @@ def loss_and_grads(model: DecNet, batch: Dict, cfg: Config,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    mesh.all_reduce_tensors(grads)
-    mesh.all_reduce_tensors(list(logs.values()))
+    mesh.reduce_gradients(model)
+    mesh.all_reduce_tensors(list(logs.values()), mesh.pixel_group())
     return logs, grads
 
 
@@ -171,8 +182,9 @@ def eval_step(model: DecNet, batch: Dict, cfg: Config
     epe, d1 = epe_and_d1(pred, gt, cfg.model.max_disp)
     coarse = out["preds"][0]
     H, W = gt.shape[1:]
-    up = interpolate((coarse * (H / coarse.shape[1]))[:, None], H, W,
-                     "bicubic")[:, 0]
+    with mesh.placed(mesh.ROWS):
+        up = interpolate((coarse * (H / coarse.shape[1]))[:, None], H, W,
+                         "bicubic")[:, 0]
     epe_up0, d1_up0 = epe_and_d1(up, gt, cfg.model.max_disp)
     return {"epe": epe, "d1": d1, "epe_up0": epe_up0, "d1_up0": d1_up0,
             "pred": pred}

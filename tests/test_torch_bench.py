@@ -14,6 +14,17 @@ from decnet_tpu_torch.cli import bench
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_bench_keys():
     """The keys of the JSON line the root bench.py prints (its `out` dict
     and the keys it adds when it knows the chip's peak)."""

@@ -31,6 +31,17 @@ TINY = dict(max_disp=54, base_channels=4, num_stage=4, down_scale=3,
             cand_fallback=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
     """A tiny faithful checkpoint both packages read (config.json +

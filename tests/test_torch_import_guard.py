@@ -56,3 +56,19 @@ print(len(mods))
                          text=True, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) >= 40
+
+
+def test_every_compiled_source_lies_in_the_port():
+    """`ops/kernels/build.py` compiles only the port's own sources: the
+    CUDA kernels of `csrc/` and the host libraries of `csrc/host/`, never
+    a file of the JAX package such as `native/`."""
+    from decnet_tpu_torch.ops.kernels import build
+    port = os.path.join(ROOT, "decnet_tpu_torch") + os.sep
+    cuda = sorted(p for p in os.listdir(build.CSRC_DIR) if p.endswith(".cu"))
+    names = list(build.HOST_SOURCES) + [p[:-3] for p in cuda]
+    assert {"decnet_native", "png_unfilter", "jpeg_decode", "warp",
+            "spamat_moments", "spamat_backward", "spamat_dtar"} <= set(names)
+    for name in names:
+        src = os.path.realpath(build._source(name))
+        assert src.startswith(port), (name, src)
+        assert os.path.isfile(src), (name, src)

@@ -31,6 +31,17 @@ H, W = 54, 81
 SMALL = dict(max_disp=54, base_channels=4, down_scale=3, use_detail=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def inputs(ns, seed=0):
     """(left, right) NHWC in [0,1] and random masks per fine stage."""
     rng = np.random.RandomState(seed)

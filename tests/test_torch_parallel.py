@@ -25,12 +25,18 @@ only contend with the other test workers).
     tests/test_torch_train_step.py holds it, and grad norm 2e-3: JAX logs
     it from an XLA dot that is not f32-exact on this CPU (see that file;
     6.7e-4 here).  One JAX compile;
+  * the dry run on 4 processes, JAX's mesh for 4 devices (data 1 x tile
+    2 x disp 2): against the replay with JAX's dry-run tolerances (loss
+    2e-5, grad norm 2e-4) and every leaf's gradient norm within [0.9,
+    1.1]; against JAX's step with the data mesh's tolerances (the JAX
+    step is the one fixture both share); each rank's collectives by kind;
   * the train CLI under --multihost 1 in two processes: its losses are the
     one-process run's (the dry run's tolerances), the two shards of each global batch are disjoint
     and together the one-process batch, only rank 0 logs and writes, and
     data.on_device is refused with JAX's message; its RSS guard
     checkpoints and exits 75;
-  * make_mesh's shapes and refusals, as tests/test_parallel.py's."""
+  * make_mesh's shapes, rank positions and refusals, as
+    tests/test_parallel.py's."""
 import json
 import os
 
@@ -120,7 +126,9 @@ def test_metrics_are_global_on_every_rank(units):
 
 @pytest.fixture(scope="module")
 def dry():
-    return dryrun.dryrun_multichip(2, "cpu", threads=THREADS)
+    # a data mesh: the tile and disp axes are tests/test_torch_mesh.py's
+    return dryrun.dryrun_multichip(2, "cpu", threads=THREADS,
+                                   mesh_cfg=MeshConfig(data=2))
 
 
 def test_dryrun_two_processes_equal_the_replay(dry, capsys):
@@ -154,11 +162,15 @@ def jax_batch():
             "right_masks": [m.numpy() for m in b["right_masks"]]}
 
 
-def test_two_processes_equal_jax_on_a_data_mesh(dry):
+@pytest.fixture(scope="module")
+def jax_step():
+    """JAX's step of the dry run (the port's initialisation carried to
+    JAX; no JAX init to compile) on a 2-device `data` mesh: its logs, its
+    state after the step and the clipped gradient (Adam's first moment /
+    0.1), flat in the port's parameter order.  One JAX compile, shared by
+    the data mesh's and the tile x disp mesh's comparisons."""
     jcfg, b = jax_dryrun_config(), jax_batch()
     model = get_model("decnet", jcfg.model)
-    # the dry run's weights, the port's initialisation, carried to JAX (no
-    # JAX init to compile)
     cfg = dryrun.dryrun_config()
     tmodel = DecNet(cfg.model)
     tmodel.load_state_dict(dryrun.fresh_state(cfg))
@@ -172,22 +184,74 @@ def test_two_processes_equal_jax_on_a_data_mesh(dry):
     with mesh2:
         st, logs = make_train_step(model, jcfg, donate=False)(st, jb)
     logs = {k: float(v) for k, v in logs.items()}
-
-    r0 = dry["ranks"][0]
-    np.testing.assert_allclose(r0["loss"], logs["total"],
-                               rtol=dryrun.LOSS_RTOL)
-    np.testing.assert_allclose(r0["grad_norm"], logs["grad_norm"],
-                               rtol=JAX_NORM_RTOL)
     want = state_dict_from_flax({"params": st.params,
                                  "batch_stats": st.batch_stats})
-    for k, w in want.items():
-        close(r0["state"][k], w.numpy(), STEP_RTOL, k, STATE_FLOOR)
     mu = state_dict_from_flax({"params": jax.tree_util.tree_map(
         lambda m: np.asarray(m) / np.float32(0.1), st.opt_state[1][0].mu)})
     names = [k for k, _ in tmodel.named_parameters()]
     jgrad = np.concatenate([mu[k].numpy().ravel() for k in names])
+    return logs, {k: w.numpy() for k, w in want.items()}, jgrad
+
+
+def equal_jax(r0, jax_step):
+    logs, want, jgrad = jax_step
+    np.testing.assert_allclose(r0["loss"], logs["total"],
+                               rtol=dryrun.LOSS_RTOL)
+    np.testing.assert_allclose(r0["grad_norm"], logs["grad_norm"],
+                               rtol=JAX_NORM_RTOL)
+    for k, w in want.items():
+        close(r0["state"][k], w, STEP_RTOL, k, STATE_FLOOR)
     assert np.linalg.norm(r0["grads"] - jgrad) <= \
         JAX_GRAD_TOL * np.linalg.norm(jgrad)
+
+
+def test_two_processes_equal_jax_on_a_data_mesh(dry, jax_step):
+    equal_jax(dry["ranks"][0], jax_step)
+
+
+@pytest.fixture(scope="module")
+def dry4():
+    """The dry run on 4 processes: JAX's mesh for 4 devices, data 1 x
+    tile 2 x disp 2 (dryrun_multichip checks it against the replay, loss
+    2e-5, grad norm 2e-4, every leaf's norm within [0.9, 1.1])."""
+    return dryrun.dryrun_multichip(4, "cpu", threads=THREADS)
+
+
+def test_tile_disp_step_equals_the_replay(dry4):
+    """Loss 2e-5 and grad norm 2e-4 relative as JAX's dry run holds them;
+    every leaf's gradient norm within [0.9, 1.1] of the replay's (a sum
+    over an idle axis gives 2); every rank logs the same loss and holds
+    rank 0's state bit for bit; the mesh is JAX's."""
+    r0, one = dry4["ranks"][0], dry4["replay"]
+    assert [r["position"] for r in dry4["ranks"]] == [
+        (0, t, s) for t in range(2) for s in range(2)]
+    np.testing.assert_allclose(r0["loss"], one["loss"],
+                               rtol=dryrun.LOSS_RTOL)
+    np.testing.assert_allclose(r0["grad_norm"], one["grad_norm"],
+                               rtol=dryrun.GRAD_NORM_RTOL)
+    assert not dryrun.leaf_outliers(r0["leaf_norms"], one["leaf_norms"])
+    assert all(r["rank_max_abs_diff"] == 0 for r in dry4["ranks"])
+    assert all(r["loss"] == r0["loss"] for r in dry4["ranks"])
+
+
+def test_tile_disp_step_equals_jax(dry4, jax_step):
+    """The 4-process step against JAX's on the same batch and weights
+    (JAX's own tests hold its sharded step to its unsharded one): loss
+    2e-5, and the grad norm, the gradient and the state after the step
+    as on the data mesh."""
+    equal_jax(dry4["ranks"][0], jax_step)
+
+
+def test_tile_disp_step_collectives_by_kind(dry4):
+    """Each rank's first step: all-gathers only of conv2's rows (one a
+    view) and of the quantile masks' detail maps (two a fine stage);
+    halos for the convolutions; all-reduces for the statistics, the
+    soft-argmin, the losses and the gradients."""
+    for r in dry4["ranks"]:
+        c = r["collectives_first"]
+        assert c["all_gather"][0] == 2 + 2 * 3, c
+        assert c["halo"][0] > 0 and c["all_reduce"][0] > 0, c
+        assert set(c) == {"all_gather", "halo", "all_reduce"}, c
 
 
 # -- the train CLI across processes ------------------------------------------
@@ -242,6 +306,36 @@ def test_train_cli_multihost_two_processes(tmp_path, capsys):
     assert not os.path.exists(tmp_path / "refused")
 
 
+def test_train_cli_on_a_tile_disp_mesh(tmp_path, capsys):
+    """`--set mesh.tile=2 --set mesh.disp=2` on four processes, the
+    on-device stream (each rank its rows of the global draw), S = 2 at
+    stage 0: each step's loss, fusion term and grad norm are the
+    one-process run's (the dry run's tolerances); rank 0 alone logs and
+    saves."""
+    argv = [a for a in CLI]
+    argv[argv.index("model.max_disp=27")] = "model.max_disp=54"
+    argv[argv.index("data.on_device=false")] = "data.on_device=true"
+    train_cli.main(argv + ["--ckpt_dir", str(tmp_path / "one")])
+    want = log_lines(capsys.readouterr().out)
+    four = str(tmp_path / "four")
+    ranks = dryrun.spawn(
+        4, workers.cli_mesh_worker,
+        (argv + ["--ckpt_dir", four, "--multihost", "1", "--set",
+                 "mesh.tile=2", "--set", "mesh.disp=2"],), threads=THREADS)
+    got = log_lines(ranks[0]["log"])
+    assert [l["step"] for l in got] == [1, 2]
+    for g, w in zip(got, want):
+        for k in ("loss", "stage3/fusion"):
+            np.testing.assert_allclose(g[k], w[k], rtol=dryrun.LOSS_RTOL,
+                                       err_msg=k)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"],
+                                   rtol=dryrun.GRAD_NORM_RTOL)
+    assert all(r["log"] == "" for r in ranks[1:])
+    assert ranks[0]["saves"] == [2] and all(r["saves"] == []
+                                            for r in ranks[1:])
+    assert "mesh {'data': 1, 'tile': 2, 'disp': 2}" in ranks[0]["log"]
+
+
 def test_train_cli_rss_guard_checkpoints_and_exits_75(tmp_path):
     out = str(tmp_path / "rss")
     with pytest.raises(SystemExit) as e:
@@ -260,9 +354,19 @@ def test_make_mesh_shapes():
     assert mesh.make_mesh().data == 1
     with pytest.raises(ValueError, match="mesh 3x1x1 != 2 processes"):
         mesh.make_mesh(MeshConfig(data=3), world=2)
+    # the tile and disp axes: JAX's layout, rank r at data r // (tile
+    # disp), tile (r // disp) % tile, disp r % disp
     for axis in ("tile", "disp"):
-        with pytest.raises(NotImplementedError):
-            MeshConfig(**{axis: 2})
+        m = mesh.make_mesh(MeshConfig(**{axis: 2}), world=4)
+        assert m.shape == {"data": 2, "tile": 1, "disp": 1, axis: 2}
+    m = mesh.make_mesh(MeshConfig(tile=2, disp=2), world=8)
+    assert m.shape == {"data": 2, "tile": 2, "disp": 2}
+    assert [m.position(r) for r in range(8)] == [
+        (d, t, s) for d in range(2) for t in range(2) for s in range(2)]
+    assert m.members(("tile",), 5) == [5, 7]
+    assert m.members(("data", "disp"), 5) == [0, 1, 4, 5]
+    with pytest.raises(ValueError, match="mesh 1x2x2 != 2 processes"):
+        mesh.make_mesh(MeshConfig(data=1, tile=2, disp=2), world=2)
     assert mesh.shard(8, world=2, index=1) == ((1, 2), 4)
     with pytest.raises(ValueError, match="not divisible by 3 processes"):
         mesh.shard(8, world=3)

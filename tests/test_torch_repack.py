@@ -45,6 +45,17 @@ B, H, W = 2, 54, 54
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomised(cfg: ModelConfig, seed: int = 7):
     """A fresh port model's variables tree with every parameter drawn
     N(0, 0.2^2) and every BN statistic |N(0, 1)| + 0.5, as

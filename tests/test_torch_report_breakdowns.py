@@ -43,6 +43,17 @@ MODEL = dict(max_disp=MAX_DISP, base_channels=4, num_stage=4, down_scale=3,
              dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_batches(seed=5):
     """Random normalised views, a ground truth of smooth planes with thin
     bars (pixels a 1/27 scale loses) and 30%-dense masks, NHWC as JAX's

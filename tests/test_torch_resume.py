@@ -36,6 +36,17 @@ TINY = ["--set", "model.max_disp=54", "--set", "model.base_channels=4",
         "--set", "train.ckpt_every=1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def argv(ckpt_dir, steps=4, init_from=None):
     a = ["--config", os.path.join(DETAIL, "config.json"), "--dataset",
          "synthetic", "--ckpt_dir", str(ckpt_dir), "--steps", str(steps),

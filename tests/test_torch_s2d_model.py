@@ -59,6 +59,17 @@ KEYS = ("preds", "dense", "sparse", "sparse_raw", "fusion", "var", "cand",
         "right_details")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def inputs():
     rng = np.random.RandomState(0)
     tex = rng.rand(1, H, W + SHIFT, 3).astype(np.float32)

@@ -20,6 +20,17 @@ from decnet_tpu_torch.ops.detail import detail_residuals
 from tests.test_torch_device_synth import B, D, H, W, jax_draws, nchw
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_stressor_draws(key, b, h, w, max_disp):
     """_stressor_scene's uniform draws from make_device_batch's `key`, in
     the port's layout."""

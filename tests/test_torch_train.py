@@ -34,6 +34,7 @@ from decnet_tpu_torch.cli import train as tcli
 from decnet_tpu_torch.models import DecNet
 from decnet_tpu_torch.nn import layers as tlayers
 from decnet_tpu_torch.ops import resize as tresize
+from decnet_tpu_torch.parallel import mesh as mesh_lib
 from decnet_tpu_torch.train import checkpoint as tckpt
 from decnet_tpu_torch.train import loss as tloss
 from decnet_tpu_torch.train import metrics as tmetrics
@@ -44,6 +45,17 @@ from tests.test_torch_layers import nchw, nhwc
 from tests.test_torch_model import CKPT, FAITHFUL_SMALL, template
 
 RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def f32_model(ckpt_dir):
@@ -309,8 +321,12 @@ def test_full_config_loader_and_overrides():
     assert cfg.model.grad_method == "detach" and cfg.data.on_device
     # what the JAX package reads back from the port's dict
     JaxConfig.from_dict(cfg.to_dict())
-    with pytest.raises(NotImplementedError):
-        tconfig.load_full_config(CKPT, ["mesh.tile=2"])
+    # the tile and disp axes are ported (tests/test_torch_mesh.py); a
+    # row shard that JAX would pad is refused
+    mcfg = tconfig.load_full_config(CKPT, ["mesh.tile=2", "mesh.disp=2"])
+    assert (mcfg.mesh.tile, mcfg.mesh.disp) == (2, 2)
+    with pytest.raises(ValueError, match="H=81 is not divisible by tile 2"):
+        mesh_lib.check_divisible(81, 27, 8, mesh_lib.Mesh(1, 2, 2))
     # packed_exec is ported (tests/test_torch_repack.py)
     assert tconfig.load_full_config(
         CKPT, ["train.packed_exec=1"]).train.packed_exec

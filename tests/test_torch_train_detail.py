@@ -80,6 +80,17 @@ RECIPES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(recipe):
     model_kw, loss_kw = RECIPES[recipe]
     kw = dict(BASE, **model_kw)

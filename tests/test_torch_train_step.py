@@ -74,6 +74,17 @@ TRAIN = dict(lr=1e-3, lr_schedule="cosine", warmup_steps=500,
 LOSS = dict(sparse_term_scale=20.0, sparse_cand_mask=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while the module runs: the suite runs six
+    workers at once, and more threads per worker only contend for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(**train):
     jcfg = JaxConfig()
     jcfg.model = JaxModelConfig(**FAITHFUL_SMALL, dtype="float32",
@@ -145,10 +156,13 @@ def runs():
     jcfg, tcfg = configs()
     batches = [make_batch(s) for s in (1, 2, 3)]
     model, variables = init_variables(jcfg, batches[0])
+    # JAX's initialisation, compiled once: the tests that read the
+    # initial parameters take them from here
+    init = jax.tree_util.tree_map(np.copy, variables)
     jstep = make_train_step(model, jcfg, donate=False)
     jst = jax_state(model, variables, jcfg.train)
     tst = port_state(tcfg, variables)
-    out = {"jax": [], "port": [], "tcfg": tcfg}
+    out = {"jax": [], "port": [], "tcfg": tcfg, "init": init}
     for b in batches:
         jst, jlogs = jstep(jst, b)
         out["jax"].append((jst, {k: float(v) for k, v in jlogs.items()}))
@@ -207,8 +221,7 @@ def test_three_steps_parameters_and_batch_stats(runs):
     want = state_dict_from_flax({"params": jst.params,
                                  "batch_stats": jst.batch_stats})
     got = runs["port_state"].model.state_dict()
-    start = state_dict_from_flax(
-        init_variables(configs()[0], runs["batches"][0])[1])
+    start = state_dict_from_flax(runs["init"])
     assert runs["port_state"].step == 3
     err2 = upd2 = 0.0
     for k, w in want.items():
@@ -233,7 +246,7 @@ def test_first_step_has_rate_zero(runs):
     """The cosine schedule's first update has rate 0: after step 1 the
     JAX parameters are the initial ones, and the port's too."""
     jst = runs["jax"][0][0]
-    init = init_variables(configs()[0], runs["batches"][0])[1]
+    init = runs["init"]
     for a, b in zip(jax.tree_util.tree_leaves(jst.params),
                     jax.tree_util.tree_leaves(init["params"])):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
